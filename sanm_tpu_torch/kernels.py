@@ -1,0 +1,164 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into one shared
+library with a plain C interface (``csrc/sanm_kernels.h``), at first use,
+into ``sanm_tpu_torch/_build/`` (gitignored).  The library's name
+carries a hash of the sources and flags, so it is rebuilt only when they
+change.  It is loaded with ctypes; no source includes PyTorch's headers.
+
+Nothing here runs at import: this module, like every module of the
+package, must import on a machine without ``nvcc`` or a card.  A failing
+build raises with ``nvcc``'s stderr; there is no fallback.
+
+Launch counts: each wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel on the card, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from .utils import SANMError
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+NVCC_TIMEOUT_S = 300
+
+LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_INFO = {}  # seconds, path, ptxas report of the build in this process
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_F64 = ctypes.c_double
+_SIGNATURES = {
+    # name: argtypes (every pointer and the stream are c_void_p)
+    "sanm_remap_in": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
+    "sanm_remap_out": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
+    "sanm_jac_asm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+                     _I64, _F64, _F64, _P],
+    "sanm_nhc_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
+                      _I32, _P],
+}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    names = sorted(os.listdir(SRC_DIR))
+    cu = [os.path.join(SRC_DIR, f) for f in names if f.endswith(".cu")]
+    hdr = [os.path.join(SRC_DIR, f) for f in names if f.endswith(".h")]
+    return cu, hdr
+
+
+def _find_nvcc():
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise SANMError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build():
+    """Compile the library if its hashed file is missing; return its path."""
+    cu, hdr = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + hdr:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, "libsanm_kernels_%s.so" % h.hexdigest()[:16])
+    if os.path.exists(so):
+        BUILD_INFO.update(path=so, seconds=0.0, cached=True, report="")
+        return so
+    nvcc = _find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (so, os.getpid())
+    cmd = [nvcc, *NVCC_FLAGS, "-I", SRC_DIR, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SANMError("nvcc timed out after %ds" % NVCC_TIMEOUT_S) from e
+    if res.returncode != 0:
+        raise SANMError("nvcc failed (exit %d): %s\n%s"
+                        % (res.returncode, " ".join(cmd), res.stderr))
+    os.replace(tmp, so)
+    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
+                      cached=False, report=res.stderr)
+    return so
+
+
+def library():
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.sanm_error_string.argtypes = [ctypes.c_int]
+            lib.sanm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(counter: str, fn_name: str, *args):
+    """Call one C entry point on the current stream, raise on a launch
+    error, and count the launch."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise SANMError("%s launch failed: CUDA error %d (%s)"
+                        % (fn_name, err,
+                           lib.sanm_error_string(err).decode()))
+    LAUNCHES[counter] += 1
+
+
+def on_card(*tensors) -> bool:
+    """True when every tensor lies on the card, False when every one lies
+    on the CPU; raises for anything else (mixed or other devices)."""
+    types = {t.device.type for t in tensors}
+    if types == {"cuda"}:
+        devs = {t.device for t in tensors}
+        if len(devs) != 1:
+            raise SANMError("tensors on several cards: %s" % devs)
+        return True
+    if types == {"cpu"}:
+        return False
+    raise SANMError("unsupported device mix %s" % sorted(types))
+
+
+def check(t, name, shape, dtype):
+    """Raise unless ``t`` has this shape and dtype and is contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise SANMError("%s: shape %s, expected %s"
+                        % (name, tuple(t.shape), tuple(shape)))
+    if t.dtype != dtype:
+        raise SANMError("%s: dtype %s, expected %s" % (name, t.dtype, dtype))
+    if not t.is_contiguous():
+        raise SANMError("%s: not contiguous" % name)
