@@ -9,18 +9,29 @@ Phases, each timed:
 2. build: one ``nvcc`` call compiles every ``sanm_tpu_torch/csrc/*.cu``
    into the gitignored ``sanm_tpu_torch/_build/``;
 3. slice: ``gravity`` on ``configs/armadillo_small.json`` (NHC, order 20,
-   Pade on) through the port's entry point, cold and warm, to force-RMS
-   <= 1e-10; every kernel's launch count in that run must be > 0;
-4. kernels: K1, K2 (remap_in, remap_out) and K3 are each held against
+   Pade on) through the port's entry point with ``"solver": "host_lu"``
+   (host SuperLU), cold and warm, to force-RMS <= 1e-10; K1-K3 must
+   launch in that run;
+4. band: the same task with ``"solver": "band_chol"`` (the card's
+   skyline band Cholesky, the path ``auto`` takes on the card), cold and
+   warm: force-RMS <= 1e-10, no inverted element, no fallback to host
+   LU, coordinates within ``BAND_COORD_RTOL`` of the slice's, and every
+   one of the eight kernels launched in that run;
+5. kernels: K1, K2 (remap_in, remap_out), K3, K4 (element_matvec) and
+   K5 (band_assemble, band_factor, band_solve) are each held against
    their plain PyTorch version on the armadillo-small model state, with
-   the f64 tolerances in ``TOL``: remap_in, K3 and remap_out at the
-   deformed equilibrium the slice converged to, remap_out also on every
-   K1 bias, K1 along a real first ANM restart (bias orders 2..20);
-   kernel, plain and (where one PyTorch call computes the same function)
-   library times, and the least time the card could take (``bound``);
-5. parity: NHC equilibrium of a small cuboid, order 20, solved through
-   the kernels and through the plain versions on the CPU: same
-   iterations, coordinates within ``PARITY_RTOL``.
+   the f64 tolerances in ``TOL``: remap_in, K3, K4, K5 and remap_out at
+   the deformed equilibrium the band phase converged to, remap_out also
+   on every K1 bias, K1 along a real first ANM restart (bias orders
+   2..20); kernel, plain and (where one PyTorch call computes the same
+   function) library times, and the least time the card could take
+   (``bound``);
+6. parity: NHC equilibrium of a small cuboid, order 20, solved through
+   the kernels and through the plain versions on the CPU, with host LU
+   and with the band solver: same iterations, coordinates within
+   ``PARITY_RTOL``;
+7. profile: one warm band_chol re-solve of armadillo-small under
+   ``torch.profiler``: device time by kernel and the card's busy share.
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -41,26 +52,46 @@ import time
 BUDGET_S = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "armadillo_small.json")
-# H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34 TFLOP/s
+# H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
+# TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F64_S = 34e12
+PEAK_F64_TC_S = 67e12
 # kernel vs plain, max |diff| / max |plain| (per component group for K1):
-# f64 sums in another order (and with fused multiply-adds) than torch's
+# f64 sums in another order (and with fused multiply-adds) than torch's;
+# band_assemble computes the same products (1/sqrt on the card, rsqrt in
+# torch); band_factor's Cholesky and triangular inverses round in
+# another order, which the blocks' conditioning amplifies
 TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
-       "nhc_step": 1e-11}
+       "nhc_step": 1e-11, "element_matvec": 1e-12, "band_assemble": 1e-14,
+       "band_factor": 1e-10, "band_solve": 1e-12}
 PARITY_RTOL = 1e-9
 RMS_TARGET = 1e-10
+# band vs host-LU equilibrium, max |diff| / max displacement: both stop
+# at force-RMS <= 1e-10, about 1e-6 of the ~1.6e-4 N gravity load of a
+# vertex
+BAND_COORD_RTOL = 1e-6
+KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
+           "band_assemble", "band_factor", "band_solve")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
     "jac_asm": "sanm_tpu/solver/anm.py:278",
     "nhc_step": "sanm_tpu/solver/anm.py:293",
+    "element_matvec": "sanm_tpu/solver/remap.py:453",
+    "band_assemble": "sanm_tpu/solver/band.py:225",
+    "band_factor": "sanm_tpu/solver/band.py:247",
+    "band_solve": "sanm_tpu/solver/band.py:321",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
     "remap_out": "sanm_tpu_torch/csrc/remap.cu",
     "jac_asm": "sanm_tpu_torch/csrc/jac_asm.cu",
     "nhc_step": "sanm_tpu_torch/csrc/nhc_series.cu",
+    "element_matvec": "sanm_tpu_torch/csrc/remap.cu",
+    "band_assemble": "sanm_tpu_torch/csrc/band.cu",
+    "band_factor": "sanm_tpu_torch/csrc/band.cu",
+    "band_solve": "sanm_tpu_torch/csrc/band.cu",
 }
 
 _T0 = time.perf_counter()
@@ -98,9 +129,11 @@ class Timing:
     hundreds of MB between two launches of one kernel).
 
     A spin kernel of ``COVER_CYCLES`` runs between the flush and the start
-    event, so the host work of a call (argument checks, allocation, the
-    ctypes launch) is done while the card is still busy and the events
-    bracket device time only.  ``host_ms`` keeps the longest host time of
+    event, so the host work of a
+    call (argument checks, allocation, the ctypes launch) is done while
+    the card is still busy and the events bracket device time only.
+    ``setup`` runs before each launch, outside the window (band_factor
+    overwrites its input band, which is restored there).  ``host_ms`` keeps the longest host time of
     a timed call; where it exceeds ``cover_ms`` the excess is in the
     reading (so it is for the plain versions, whose host work is most of
     their cost)."""
@@ -120,16 +153,20 @@ class Timing:
         self.cover_ms = s.elapsed_time(e)
         self.host_ms = 0.0
 
-    def ms(self, fn, reps=10, warmup=2):
+    def ms(self, fn, reps=10, warmup=2, setup=None, cover_cycles=None):
         torch = self.torch
         for _ in range(warmup):
+            if setup is not None:
+                setup()
             fn()
         torch.cuda.synchronize()
         total = 0.0
         self.host_ms = 0.0
         for _ in range(reps):
+            if setup is not None:
+                setup()
             self.flush.zero_()
-            torch.cuda._sleep(self.COVER_CYCLES)
+            torch.cuda._sleep(cover_cycles or self.COVER_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             h0 = time.perf_counter()
@@ -151,14 +188,78 @@ class Timing:
                 "spin (%.3f ms)" % (self.host_ms, self.cover_ms))
         return t
 
+    def graph_ms(self, fn, reps=10, setup=None):
+        """Device time of a wrapper that launches many kernels (the band
+        factor and solve loop over the block columns on the host):
+        captured once in a CUDA graph and replayed, so that its launches
+        run back to back, without the host's launch gaps."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+        torch.cuda.synchronize()
+        t = self.ms(graph.replay, reps, 1, setup)
+        require(self.host_ms < self.cover_ms,
+                "host work of a graph replay (%.3f ms) not covered by the "
+                "spin (%.3f ms)" % (self.host_ms, self.cover_ms))
+        del graph
+        return t
+
+
+def phase_profile(torch, solver):
+    """One warm re-solve of the band path under ``torch.profiler``: device
+    time by kernel name, and the share of the wall time the card was
+    busy.  Last, since the profiler slows launches after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sanm_tpu_torch.fea.app import run_anm_eqn
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        solver.reset()
+        run_anm_eqn(solver, progress=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    parts = {}
+    for ev in prof.key_averages():
+        t = float(getattr(ev, "device_time_total", 0.0)) / 1e3
+        if t > 0:
+            key = ev.key.replace("(anonymous namespace)::", "")
+            name = key.split("(")[0].split()[-1].split("::")[-1]
+            ms, cnt = parts.get(name, (0.0, 0))
+            parts[name] = (ms + t, cnt + ev.count)
+    if not parts:
+        say("profile: not measured (the profiler saw no device time)")
+    else:
+        busy = sum(ms for ms, _ in parts.values())
+        say("profile of one warm band_chol re-solve (%d restarts): wall "
+            "%.1f ms under the profiler, device busy %.1f ms (%.1f%%)"
+            % (solver.get_nr_iter(), wall_ms, busy, 100.0 * busy / wall_ms))
+        top = sorted(parts.items(), key=lambda kv: -kv[1][0])
+        say("profile by kernel: " + ", ".join(
+            "%s %.3f ms x%d" % (k, ms, c) for k, (ms, c) in top[:16]))
+    phase_done("profile", t0)
+
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, flops, peak_flops=PEAK_F64_S):
     tb = bytes_moved / PEAK_BYTES_S * 1e3
-    tf = flops / PEAK_F64_S * 1e3
+    tf = flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -207,6 +308,15 @@ def phase_build():
             say("  ptxas:", line.strip())
     phase_done("build", t0)
     return info["seconds"]
+
+
+def rest_vertices():
+    """armadillo-small's vertices as the gravity task loads them."""
+    from sanm_tpu_torch.fea import app
+
+    body, _, _ = app.gravity_setup(app.read_json(CONFIG),
+                                   os.path.dirname(CONFIG))
+    return body.mesh.vertices
 
 
 def armadillo_model():
@@ -288,7 +398,9 @@ def phase_kernels(torch, timing, verts_eq):
            timing.ms(lambda: K23.jac_asm_plain(asm, elems, gin), reps=3),
            bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
                            asm.nz_ptr, asm.nz_slot, E, data), flops))
-    del data, E, data_p, E_p
+    del data_p, E_p
+    band_rows(torch, timing, model, data, E, x_eq, f_load, report)
+    del data, E
 
     # ---- K2 remap_out on the stress at the equilibrium; its error is
     # joined below by the K1 biases of the restart ----
@@ -379,7 +491,130 @@ def phase_kernels(torch, timing, verts_eq):
     return rows
 
 
-def cuboid_solve(device):
+def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
+    """K4 and K5 on the Jacobian ``data`` / ``E`` at the equilibrium
+    ``x_eq``: element_matvec on the equilibrium displacement, the band
+    assembly and factor of that Jacobian, the band solve of the scaled
+    load."""
+    import numpy as np
+
+    from sanm_tpu_torch.solver import assemble as K23
+    from sanm_tpu_torch.solver import band as K5
+
+    f64, i64 = torch.float64, torch.int64
+    asm = model.asm
+    n, B = asm.n, asm.B
+    t0 = time.perf_counter()
+    plan = K5.BandPlan(asm.csr_rowidx, asm.csr_cols, n)
+    arrs = plan.on("cuda")
+    say("band plan: s=%d bw=%d w=%d nb=%d W=%d nrow_tot=%d mean reach "
+        "%.2f blocks; factor %.3f GB, working band %.3f GB, %.4e f64 "
+        "operations (host %.2f s)" % (
+            plan.s, plan.bw, plan.w, plan.nb, plan.W, plan.nrow_tot,
+            float(plan.blk_w.mean()), plan.mem_bytes() / 1e9,
+            plan.work_mem_bytes() / 1e9, plan.factor_flops(),
+            time.perf_counter() - t0))
+
+    # ---- K4 element_matvec on the equilibrium displacement ----
+    xd = torch.as_tensor(np.asarray(x_eq) - model.x0(), dtype=f64).cuda()
+    y = K23.element_matvec(asm, E, xd)
+    yp = K23.element_matvec_plain(asm, E, xd)
+    err, rel = rel_err(y, yp)
+    counts = np.bincount(asm.csr_rowidx, minlength=n)
+    crow = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=i64).cuda()
+    rows_t = torch.as_tensor(asm.csr_rowidx, dtype=i64).cuda()
+    cols_t = torch.as_tensor(asm.csr_cols, dtype=i64).cuda()
+    S = torch.sparse_csr_tensor(crow, cols_t, data, size=(n, n))
+    lib = timing.ms(lambda: S @ xd)
+    err_lib, _ = rel_err(S @ xd, yp)
+    nent = B * asm.Dout
+    report("element_matvec", err, rel,
+           timing.kernel_ms(lambda: K23.element_matvec(asm, E, xd)),
+           timing.ms(lambda: K23.element_matvec_plain(asm, E, xd)),
+           bound_ms(nbytes(E, asm.loc_cols, xd, asm.row_ptr, asm.row_ent, y),
+                    2 * nent * asm.Din + nent), lib,
+           "(library: CSR SpMV, err %.1e)" % err_lib)
+    del S
+
+    # ---- K5a band_assemble ----
+    band, scale = K5.band_assemble(plan, data)
+    band_p, scale_p = K5.band_assemble_plain(plan, data)
+    e_b, r_b = rel_err(band, band_p)
+    e_s, r_s = rel_err(scale, scale_p)
+    del band_p, scale_p
+    nlow = len(plan.band_sel)
+    asm_in = [arrs[k] for k in ("diag_of_row", "band_sel", "sel_rows",
+                                "sel_cols", "band_idx", "pad_idx")]
+    report("band_assemble", max(e_b, e_s), max(r_b, r_s),
+           timing.kernel_ms(lambda: K5.band_assemble(plan, data), reps=5),
+           timing.ms(lambda: K5.band_assemble_plain(plan, data), reps=2,
+                     warmup=1),
+           bound_ms(nbytes(data, *asm_in, band, scale), 3 * nlow + 2 * n),
+           extra="(memset of the %.2f GB band + scatter)"
+           % (nbytes(band) / 1e9))
+
+    # ---- K5b band_factor: the kernel overwrites its band, which setup
+    # restores from the pristine copy ----
+    work = torch.empty_like(band)
+
+    def restore():
+        work.copy_(band)
+
+    restore()
+    panels = K5.band_factor(plan, work)
+    restore()
+    panels_p = K5.band_factor_plain(plan, work)
+    require(K5.band_factor_ok(panels), "band factor not finite")
+    e_f, r_f = rel_err(panels, panels_p)
+    del panels_p
+    f_ms = timing.graph_ms(lambda: K5.band_factor(plan, work), reps=3,
+                           setup=restore)
+    f_launch_ms = timing.ms(lambda: K5.band_factor(plan, work), reps=2,
+                            warmup=0, setup=restore, cover_cycles=1)
+    f_plain_ms = timing.ms(lambda: K5.band_factor_plain(plan, work), reps=1,
+                           warmup=0, setup=restore)
+    del work
+    # library: dense Cholesky of the same (n, n) matrix
+    M = torch.zeros((n, n), dtype=f64, device="cuda")
+    M[rows_t, cols_t] = -(data * scale[rows_t] * scale[cols_t])
+    Lc = torch.linalg.cholesky(M)
+    f_lib_ms = timing.ms(lambda: torch.linalg.cholesky(M), reps=2, warmup=0)
+    del M
+    report("band_factor", e_f, r_f, f_ms, f_plain_ms,
+           bound_ms(nbytes(band, panels), plan.factor_flops(), PEAK_F64_TC_S),
+           f_lib_ms, "(launches back to back in a CUDA graph; %.4f ms "
+           "launched from the host; library: dense torch.linalg.cholesky "
+           "of the %.1f GB matrix)" % (f_launch_ms, 8.0 * n * n / 1e9))
+    del band
+
+    # ---- K5c band_solve of the scaled load vector ----
+    rhs = torch.as_tensor(f_load, dtype=f64).cuda() * scale
+    ys = K5.band_solve(plan, panels, rhs)
+    ys_p = K5.band_solve_plain(plan, panels, rhs)
+    e_y, r_y = rel_err(ys, ys_p)
+    s_lib = timing.ms(lambda: torch.cholesky_solve(rhs[:, None], Lc), reps=3)
+    err_lib_s, _ = rel_err(torch.cholesky_solve(rhs[:, None], Lc)[:, 0], ys_p)
+    del Lc
+    torch.cuda.empty_cache()
+    s_ms = timing.graph_ms(lambda: K5.band_solve(plan, panels, rhs))
+    s_launch_ms = timing.ms(lambda: K5.band_solve(plan, panels, rhs),
+                            cover_cycles=1)
+    report("band_solve", e_y, r_y, s_ms,
+           timing.ms(lambda: K5.band_solve_plain(plan, panels, rhs), reps=2,
+                     warmup=1),
+           bound_ms(nbytes(panels, rhs, arrs["perm_ext"], arrs["invp_ext"],
+                           ys), 4 * panels.numel()), s_lib,
+           "(launches back to back in a CUDA graph; panels read once in "
+           "the bound, twice by the algorithm; %.4f ms launched from the "
+           "host; library: "
+           "torch.cholesky_solve with the dense factor, err %.1e)"
+           % (s_launch_ms, err_lib_s))
+    del panels
+    torch.cuda.empty_cache()
+
+
+def cuboid_solve(device, solver):
     import numpy as np
 
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
@@ -396,43 +631,57 @@ def cuboid_solve(device):
     f[mesh.vertices[:, 0] > (nx - 1) * h - h / 2, 2] = -200.0
     model = body.make_forward(EnergyModel.NEOHOOKEAN_C, device=device)
     fs = model.lt_inp.copy_vtx_values(f)
-    hp = EqnHyperParam(order=20, use_pade=True)
+    hp = EqnHyperParam(order=20, use_pade=True, solver=solver)
     hp.converge_rms = RMS_THRESH_FORCE_EQU
     hp.solution_check_tol = 1e-3
     s = ANMEqnSolver(model, model.x0(), fs, hp)
     x = run_anm_eqn(s, progress=False)
     rms = DeformableBody.compute_force_rms(model, x, fs)
+    require(s.solver_resolved() == solver,
+            "cuboid on %s: %s ran" % (solver, s.solver_resolved()))
     return s.get_nr_iter(), x, rms
 
 
 def phase_parity():
     import numpy as np
 
+    import torch
+
     t0 = time.perf_counter()
-    it_c, x_c, rms_c = cuboid_solve("cuda")
-    it_p, x_p, rms_p = cuboid_solve("cpu")
-    rel = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
-    say("parity cuboid (225 tets, order 20): iter card %d / cpu %d, "
-        "force-RMS card %.3e / cpu %.3e, coord rel diff %.3e (tol %.0e)"
-        % (it_c, it_p, rms_c, rms_p, rel, PARITY_RTOL))
-    require(it_c == it_p, "iterations differ between card and CPU")
-    require(rel <= PARITY_RTOL, "card and CPU solutions differ")
-    require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
+    threads = torch.get_num_threads()
+    for solver in ("host_lu", "band_chol"):
+        it_c, x_c, rms_c = cuboid_solve("cuda", solver)
+        # the plain band factor is many small BLAS calls, which a pool of
+        # CPU threads slows down
+        torch.set_num_threads(1)
+        try:
+            it_p, x_p, rms_p = cuboid_solve("cpu", solver)
+        finally:
+            torch.set_num_threads(threads)
+        rel = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
+        say("parity cuboid (225 tets, order 20, %s): iter card %d / cpu "
+            "%d, force-RMS card %.3e / cpu %.3e, coord rel diff %.3e (tol "
+            "%.0e)" % (solver, it_c, it_p, rms_c, rms_p, rel, PARITY_RTOL))
+        require(it_c == it_p, "iterations differ between card and CPU")
+        require(rel <= PARITY_RTOL, "card and CPU solutions differ")
+        require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
     phase_done("parity", t0)
 
 
-def phase_slice(torch):
+def run_gravity(torch, solver):
+    """``app.gravity`` on armadillo-small with ``solver``, cold and one warm
+    re-solve, with the profiler on and the launch counts set to 0 just
+    before; returns the task result, the counts and the scope stats."""
+    from sanm_tpu_torch import kernels
     import numpy as np
 
-    from sanm_tpu_torch import kernels
     from sanm_tpu_torch.fea import app
     from sanm_tpu_torch.utils import ScopedProfiler
 
-    t0 = time.perf_counter()
     os.environ["SANM_WARM_TIMING"] = "1"
     ScopedProfiler.enabled = True
     ScopedProfiler.reset()
-    cfg = app.read_json(CONFIG)
+    cfg = dict(app.read_json(CONFIG), solver=solver)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -443,40 +692,83 @@ def phase_slice(torch):
             launches = dict(kernels.LAUNCHES)
         finally:
             os.chdir(cwd)
-    st = res.stat
-    verts = res.mesh.vertices
-    say("slice: iterations=%d" % st["iter"])
-    say("slice: force_rms_recomp=%.3e (target %.0e) nr_inverted=%d "
-        "displacement=%.4g" % (st["force_rms_recomp"], RMS_TARGET,
-                                st["nr_inverted"], st["displacement"]))
-    say("slice: time_solve cold=%.3f s warm=%.3f s time_prep=%.3f s"
-        % (st["time_solve"], st["time_solve_warm"], st["time_prep"]))
     per = {}
-    for name, unit in (("sparse_prep", 1.0), ("sparse_solve", 1.0),
-                       ("order_step", 1e3), ("bias_pull", 1e3),
-                       ("build_sparse_coeff", 1.0), ("eval_fx0", 1.0)):
+    for name in ("sparse_prep", "sparse_solve", "order_step", "bias_pull",
+                 "build_sparse_coeff", "eval_fx0"):
         calls, tot = ScopedProfiler.stats(name)
-        per[name] = (calls, tot / calls * unit if calls else float("nan"))
-    say("slice: factor s/restart=%.4f (%d)  backsolve s/solve=%.5f (%d)  "
+        per[name] = (calls, tot / calls if calls else float("nan"))
+    ScopedProfiler.enabled = False
+    st = res.stat
+    say("%s: iterations=%d solver_resolved=%s" % (
+        solver, st["iter"], st["solver_resolved"]))
+    say("%s: force_rms_recomp=%.3e (target %.0e) nr_inverted=%d "
+        "displacement=%.4g" % (solver, st["force_rms_recomp"], RMS_TARGET,
+                                st["nr_inverted"], st["displacement"]))
+    say("%s: time_solve cold=%.3f s warm=%.3f s time_prep=%.3f s"
+        % (solver, st["time_solve"], st["time_solve_warm"], st["time_prep"]))
+    say("%s: launches %s" % (solver, json.dumps(launches)))
+    require(np.isfinite(res.mesh.vertices).all()
+            and res.mesh.vertices.shape == (13665, 3), "bad output mesh")
+    require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
+    require(st["nr_inverted"] == 0, "inverted elements")
+    require(st["solver_resolved"] == solver, "solver %s not taken" % solver)
+    return res, launches, per
+
+
+def phase_slice(torch):
+    """The first slice's path: host SuperLU."""
+    t0 = time.perf_counter()
+    res, launches, per = run_gravity(torch, "host_lu")
+    say("host_lu: factor s/restart=%.4f (%d)  backsolve s/solve=%.5f (%d)  "
         "K1+K2 ms/order=%.4f (%d)  bias_pull ms/order=%.4f (%d)  "
         "jac+K1 start s/restart=%.4f (%d)  f(x0) s=%.4f (%d)" % (
             per["sparse_prep"][1], per["sparse_prep"][0],
             per["sparse_solve"][1], per["sparse_solve"][0],
-            per["order_step"][1], per["order_step"][0],
-            per["bias_pull"][1], per["bias_pull"][0],
+            per["order_step"][1] * 1e3, per["order_step"][0],
+            per["bias_pull"][1] * 1e3, per["bias_pull"][0],
             per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
             per["eval_fx0"][1], per["eval_fx0"][0]))
-    say("slice: launches", json.dumps(launches))
-    require(np.isfinite(verts).all() and verts.shape == (13665, 3),
-            "bad output mesh")
-    require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
-    require(st["nr_inverted"] == 0, "inverted elements")
-    for name, count in launches.items():
-        require(count > 0, "kernel %s was not launched on the main path"
-                % name)
-    ScopedProfiler.enabled = False
+    for name in ("nhc_step", "remap_in", "remap_out", "jac_asm"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "host_lu path" % name)
     phase_done("slice", t0)
-    return launches, st, verts
+    return launches, res.stat, res.mesh.vertices
+
+
+def phase_band(torch, verts_lu, verts_rest):
+    """The band_chol path; its equilibrium against the host_lu one."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    res, launches, per = run_gravity(torch, "band_chol")
+    solver = res.solver
+    solves = per["sparse_solve"][0]
+    trips = launches["band_solve"] / solves - 1 if solves else float("nan")
+    say("band_chol: factor s/restart=%.4f (%d)  band solve ms/solve=%.4f "
+        "(%d)  refinement trips/solve=%.3f  K1+K2 ms/order=%.4f (%d)  "
+        "jac+K1 start s/restart=%.4f (%d)  f(x0) s=%.4f (%d)" % (
+            per["sparse_prep"][1], per["sparse_prep"][0],
+            per["sparse_solve"][1] * 1e3, solves, trips,
+            per["order_step"][1] * 1e3, per["order_step"][0],
+            per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
+            per["eval_fx0"][1], per["eval_fx0"][0]))
+    verts = res.mesh.vertices
+    disp = float(np.abs(verts_lu - verts_rest).max())
+    diff = float(np.abs(verts - verts_lu).max()) / disp
+    st = res.stat
+    say("band_chol: expansions %s, fallbacks to host LU %s; coordinates "
+        "vs host_lu: max diff / max displacement %.3e (tol %.0e)" % (
+            json.dumps(st["expansions"]), json.dumps(st["band_fallbacks"]),
+            diff, BAND_COORD_RTOL))
+    require(not any(st["band_fallbacks"].values())
+            and st["expansions"]["host_lu"] == 0,
+            "the band path fell back to host LU")
+    require(diff <= BAND_COORD_RTOL, "band and host-LU equilibria differ")
+    for name in KERNELS:
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "band_chol path" % name)
+    phase_done("band", t0)
+    return launches, res.stat, verts, solver
 
 
 def main(argv):
@@ -496,14 +788,19 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_s = phase_build()
-    launches, stat, verts_eq = phase_slice(torch)
+    _, stat_lu, verts_lu = phase_slice(torch)
+    launches, stat, verts_eq, band_solver = phase_band(
+        torch, verts_lu, rest_vertices())
+    torch.cuda.empty_cache()
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     del timing
     torch.cuda.empty_cache()
     phase_parity()
+    phase_profile(torch, band_solver)
+    del band_solver
     kern = []
-    for name in ("nhc_step", "remap_in", "remap_out", "jac_asm"):
+    for name in KERNELS:
         r = rows[name]
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -517,7 +814,7 @@ def main(argv):
         with open(os.path.join(out_dir, "chip_smoke.log"), "w") as f:
             f.write("\n".join(_LOG) + "\n")
         with open(os.path.join(out_dir, "chip_smoke_stat.json"), "w") as f:
-            json.dump(stat, f, indent=1)
+            json.dump({"band_chol": stat, "host_lu": stat_lu}, f, indent=1)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

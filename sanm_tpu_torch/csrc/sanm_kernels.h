@@ -1,7 +1,9 @@
 // C interface of the port's hand-written CUDA kernels (loaded with ctypes
 // by sanm_tpu_torch/kernels.py).  Every entry point launches on the given
 // stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() after its launches (0 = launched).
+// cudaGetLastError() after its launches (0 = launched).  The band entry
+// points loop over the block columns on the host and launch a few kernels
+// per column.
 //
 // Arrays are float64 and int32, contiguous, row-major, on one card.
 #pragma once
@@ -38,6 +40,43 @@ int sanm_nhc_step(double* hist, const double* gin, const double* bias,
                   const double* dminv, double* bias_out, int64_t B, int k,
                   int order, double mu, double lam, int want_bias,
                   void* stream);
+
+// K4: out[r] = (A x)[r] from the condensed stiffness E (B, Dout, Din):
+// contrib[e] = sum_j E[e, j] x[loc_cols[b, j]] (b = e / Dout; columns >= n
+// read as zero), then the row sums of remap_out's gather form.
+int sanm_element_matvec(const double* E, const int32_t* loc_cols,
+                        const double* x, const int32_t* row_ptr,
+                        const int32_t* row_ent, double* contrib, double* out,
+                        int64_t n, int64_t n_rows, int64_t nent, int Dout,
+                        int Din, void* stream);
+
+// K5a: zero the working band (band_len doubles), scale[r] =
+// |data[diag_of_row[r]]|^-1/2 (1 where there is no or a zero diagonal),
+// band[band_idx[e]] = -(data[sel[e]] scale[rows[e]] scale[cols[e]]) and
+// band[pad_idx[i]] = 1.
+int sanm_band_assemble(const double* data, const int32_t* diag_of_row,
+                       const int32_t* sel, const int32_t* rows,
+                       const int32_t* cols, const int64_t* band_idx,
+                       const int64_t* pad_idx, double* scale, double* band,
+                       int64_t n, int64_t nlow, int64_t npad,
+                       int64_t band_len, void* stream);
+
+// K5b: blocked skyline Cholesky of the working band (overwritten) into the
+// panels; panel_off (nb + 1) and blk_w (nb) are HOST arrays.  The block
+// size s is 128 in every band kernel.
+int sanm_band_factor(double* band, double* panels, const int64_t* panel_off,
+                     const int64_t* blk_w, int64_t nb, int64_t w,
+                     void* stream);
+
+// K5c: out = (L L^T)^-1 rhs in the original ordering: rhs (n) gathered by
+// perm_ext into work (nrow, zero past n), forward and backward
+// substitution against the panels, out[i] = work[invp_ext[i]].  partial
+// holds 2 w rows of s doubles; panel_off and blk_w are HOST arrays.
+int sanm_band_solve(const double* panels, const int64_t* panel_off,
+                    const int64_t* blk_w, const int32_t* perm_ext,
+                    const int32_t* invp_ext, const double* rhs, double* work,
+                    double* partial, double* out, int64_t n, int64_t nrow,
+                    int64_t nb, void* stream);
 
 const char* sanm_error_string(int err);
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..solver.anm import ANMEqnSolver, EqnHyperParam
+from ..solver.anm import SOLVERS, ANMEqnSolver, EqnHyperParam
 from ..utils import SANMError, ScopedProfiler, Timer, sanm_assert
 from .material import EnergyModel, MaterialProperty
 from .mesh import TetrahedralMesh
@@ -79,9 +79,10 @@ def setup_solver_param(config):
     hp.xcoeff_l2_penalty = float(config.get("xcoeff_l2_penalty", 0.0))
     hp.use_pade = not config.get("disable_pade", False)
     hp.sanity_check = not config.get("disable_anm_sanity_check", False)
-    solver = config.get("solver", "auto")
-    if solver not in ("auto", "host_lu"):
-        raise SANMError("solver %r is not ported yet (host_lu only)" % solver)
+    hp.solver = config.get("solver", "auto")
+    if hp.solver not in SOLVERS:
+        raise SANMError("solver %r is not ported yet (ported: %s)"
+                        % (hp.solver, ", ".join(SOLVERS)))
     hp.converge_rms = RMS_THRESH_FORCE_EQU
     return hp
 
@@ -115,11 +116,13 @@ def run_anm_eqn(solver: ANMEqnSolver, progress=True):
 
 class TaskResult:
     """Task return value: the deformed mesh + the stat dict that is also
-    written next to the output OBJ (reference ``fea/main.cpp:276-296``)."""
+    written next to the output OBJ (reference ``fea/main.cpp:276-296``),
+    and the equation solver that produced them (None where none ran)."""
 
-    def __init__(self, mesh, stat):
+    def __init__(self, mesh, stat, solver=None):
         self.mesh = mesh
         self.stat = stat
+        self.solver = solver
 
 
 def relative_displacement(v0, v1):
@@ -211,14 +214,21 @@ def run_and_save(name, config, deformable: DeformableBody,
     jstat["threads"] = ncuda
     jstat["solver_threads"] = ncuda
     jstat["threads_semantics"] = "cuda_device_count"
-    jstat["solver_backend"] = config.get("solver", "auto")
-    jstat["solver_resolved"] = "host_lu"
+    jstat["solver_backend"] = hp.solver
+    # the solver that really ran the expansions (``mixed`` after a
+    # fallback to host LU), the expansions of each and the band factor's
+    # fallbacks, cold and warm solves together
+    jstat["solver_resolved"] = solver.solver_resolved()
+    jstat["expansions"] = dict(solver.expansions)
+    jstat["band_fallbacks"] = dict(solver.band_fallbacks)
     jstat["loop_resolved"] = "hybrid"
     jstat["loop_mode"] = "hybrid"
     jstat["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu")
-    return _post_process(name, config, deformable, model, xt, f_load_sub,
-                         jstat, save, True)
+    res = _post_process(name, config, deformable, model, xt, f_load_sub,
+                        jstat, save, True)
+    res.solver = solver
+    return res
 
 
 def _post_process(name, config, deformable, model, xt, f_load_sub, jstat,

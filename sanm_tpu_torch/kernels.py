@@ -37,7 +37,9 @@ NVCC_FLAGS = [
 ]
 NVCC_TIMEOUT_S = 300
 
-LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0}
+LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
+            "element_matvec": 0, "band_assemble": 0, "band_factor": 0,
+            "band_solve": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -55,6 +57,13 @@ _SIGNATURES = {
                      _I64, _F64, _F64, _P],
     "sanm_nhc_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
                       _I32, _P],
+    "sanm_element_matvec": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                            _I32, _I32, _P],
+    "sanm_band_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                           _I64, _I64, _P],
+    "sanm_band_factor": [_P, _P, _P, _P, _I64, _I64, _P],
+    "sanm_band_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _P],
 }
 
 

@@ -1,5 +1,5 @@
-"""Continuation drivers, assembly kernels and the host sparse solver
-(port of ``sanm_tpu/solver``)."""
+"""Continuation drivers, assembly kernels, the host sparse solver and the
+card's band Cholesky (port of ``sanm_tpu/solver``)."""
 
 from .anm import (  # noqa: F401
     ANMEqnSolver,

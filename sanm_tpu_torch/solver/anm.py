@@ -1,20 +1,32 @@
-"""ANM continuation drivers: host sparse LU and the per-order device step.
+"""ANM continuation drivers: the host_lu and band_chol solve paths.
 
-Port of the ``host_lu`` + ``hybrid`` path of ``sanm_tpu/solver/anm.py``
-(reference ``libsanm/anm.{h,cpp}``): numerical continuation of
-``H(x, t) = 0`` by an order-N Taylor expansion of the solution curve
-with the arc-length normalization ``x_1 . x_1 + t_1^2 = 1`` and the
-per-order orthogonality ``x_k . x_1 + t_k t_1 = 0``.  Per order::
+Port of the ``host_lu`` + ``hybrid`` path and of the ``band_chol``
+device loop of ``sanm_tpu/solver/anm.py`` (reference
+``libsanm/anm.{h,cpp}``): numerical continuation of ``H(x, t) = 0`` by
+an order-N Taylor expansion of the solution curve with the arc-length
+normalization ``x_1 . x_1 + t_1^2 = 1`` and the per-order orthogonality
+``x_k . x_1 + t_k t_1 = 0``.  Per order::
 
     A x_k + gt t_k + b_k = 0,      A = d(remap_out . f . remap_in)/dx
 
 with the same A for every k.  Per restart the card computes the element
-Jacobian and the CSR values (K3) and the order-0 series (K1); the host
-factorizes A once (SuperLU).  Per order the card runs K2 remap_in, K1
-(commit k + bias k+1) and K2 remap_out; b crosses to the host once
-(``bias_pull``), is back-substituted, and the host runs the scalar
-t_k / x_k recurrence.  The continuation control (restarts, Pade,
-convergence) is host Python on the (N+1, n+1) coefficient matrix.
+Jacobian and the CSR values (K3) and the order-0 series (K1).  Per order
+the card runs K2 remap_in, K1 (commit k + bias k+1) and K2 remap_out.
+
+* ``host_lu``: the host factorizes A once (SuperLU); b crosses to the
+  host once per order (``bias_pull``), is back-substituted, and the host
+  runs the scalar t_k / x_k recurrence.
+* ``band_chol``: the card factorizes A once (the K5 skyline band
+  Cholesky, ``solver/band.py``) and per order runs the refined band solve
+  (K5c, refinement and sanity residual through K4 ``element_matvec``)
+  and the t_k / x_k recurrence on device tensors; b and x_k stay on the
+  card, and the coefficient matrix and the sanity residuals cross to the
+  host once per restart.  A factor that is not finite, or whose first
+  refined solve misses the pre-gate :data:`FACTOR_GATE`, falls back to
+  host LU (the latter for the rest of the solve).
+
+The continuation control (restarts, Pade, convergence) is host Python on
+the (N+1, n+1) coefficient matrix.
 
 The model here is the NHC forward model of
 :class:`~sanm_tpu_torch.fea.model.ElasticForceModel`; its f(x0) is
@@ -24,8 +36,10 @@ evaluated in f64 on the model's device.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
+import torch
 
 from .. import polynomial
 from ..ops.nhc_series import NHCSeries
@@ -36,15 +50,26 @@ from ..utils import (
     sanm_assert,
     verbose_mode,
 )
-from .assemble import jac_asm
-from .linear import host_splu
+from .assemble import element_matvec, jac_asm
+from .band import BandPlan, DeviceBandCholSolver
+from .linear import HostSparseLU
+
+#: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``)
+SOLVERS = ("auto", "host_lu", "band_chol")
+#: factor-quality pre-gate: the first refined band solve's relative
+#: residual must reach this, or the solve falls back to host LU
+#: (``anm.py:712-740``)
+FACTOR_GATE = 1e-8
 
 
 @dataclass
 class HyperParam:
     """Reference ``ANMDriverHelper::HyperParam`` (``libsanm/anm.h:100-114``).
 
-    The linear solver is host SuperLU, the one solver of this slice.
+    ``solver``: ``"host_lu"`` (host SuperLU), ``"band_chol"`` (the card's
+    skyline band Cholesky) or ``"auto"``: ``band_chol`` on the card when
+    its factor and working band fit in half of the card's free memory,
+    else ``host_lu`` (see ``_band_auto_ok``).
     ``fact_reuse_rel_step``: reuse the previous restart's factorization
     when the start point moved by less than this relative step (0
     disables)."""
@@ -55,6 +80,7 @@ class HyperParam:
     maxr: float = 1e-6
     solution_check_tol: float = 1e-4
     xcoeff_l2_penalty: float = 0.0
+    solver: str = "auto"
     fact_reuse_rel_step: float = 0.0
 
 
@@ -71,6 +97,8 @@ class _ANMDriverBase:
     def __init__(self, model, n_unknown: int, hyper_param=None):
         self.hp = hyper_param or HyperParam()
         sanm_assert(self.hp.order >= 2, "order=%d", self.hp.order)
+        sanm_assert(self.hp.solver in SOLVERS, "solver %r is not ported",
+                    self.hp.solver)
         self.model = model
         self.asm = model.asm
         self.n = int(n_unknown)
@@ -79,6 +107,17 @@ class _ANMDriverBase:
         self._series = NHCSeries(model.elems, self.hp.order)
         self._fact = None
         self._last_fact_reused = False
+        # band_chol state: the host plan (topology-static), the auto
+        # decision, the sticky host-LU override, the band factor's
+        # fallbacks to host LU (a missed pre-gate, an expansion that failed
+        # its checks, a factor that is not finite) and the expansions each
+        # solver ran, over the solver's life
+        self._band_plan = None
+        self._band_auto = None
+        self._solver_override = None
+        self._last_mode = None
+        self.band_fallbacks = {"gate": 0, "checks": 0, "not_finite": 0}
+        self.expansions = {"band_chol": 0, "host_lu": 0}
 
         self._iter = 0
         self.xt0 = None  # np (n+1,)
@@ -118,75 +157,160 @@ class _ANMDriverBase:
             float(np.linalg.norm(fact["x0"])) + 1e-30
         )
 
-    def _splu_factorize(self, A, pen):
-        """Sparse LU returning a ``solve(b)`` closure."""
+    # -- linear solver dispatch (anm.py:1168-1275) -----------------------
+    def _solver_mode(self):
+        """The solver of the next expansion: the sticky host-LU override
+        after a failed band factor, else ``hp.solver`` with ``auto``
+        resolved."""
+        if self._solver_override is not None:
+            return self._solver_override
+        mode = self.hp.solver
+        if mode == "auto":
+            mode = "band_chol" if self._band_auto_ok() else "host_lu"
+        return mode
+
+    @property
+    def _factor_gate_fails(self):
+        """Band factors that missed the pre-gate or whose expansion failed
+        its checks (the JAX package's count; each sets the override)."""
+        return self.band_fallbacks["gate"] + self.band_fallbacks["checks"]
+
+    def solver_resolved(self):
+        """The solver that ran the expansions so far: ``band_chol`` or
+        ``host_lu``, ``mixed`` when both did (after a fallback), None
+        before the first."""
+        ran = [m for m, c in self.expansions.items() if c]
+        return ran[0] if len(ran) == 1 else ("mixed" if ran else None)
+
+    def _band_auto_ok(self):
+        """Whether ``auto`` takes ``band_chol``: on the card only (the CPU
+        keeps host LU), without the l2 penalty (band_chol refuses
+        Tikhonov mode), before a second failed pre-gate, and when the
+        plan's factor plus working band fit in half of the card's free
+        memory.  The JAX package's TPU threshold on the factor FLOPs is
+        not ported; on the H100 the band path wins on armadillo-small
+        (PERF.md)."""
+        if (self.asm.device.type != "cuda" or self.hp.xcoeff_l2_penalty
+                or self._factor_gate_fails >= 2):
+            return False
+        if self._band_auto is None:
+            plan = self.band_plan()
+            free, _ = torch.cuda.mem_get_info(self.asm.device)
+            self._band_auto = (
+                plan.mem_bytes() + plan.work_mem_bytes() <= free / 2)
+        return self._band_auto
+
+    def band_plan(self) -> BandPlan:
+        """The band solver's host plan, built once per solver (the
+        sparsity is topology-static)."""
+        if self._band_plan is None:
+            self._band_plan = BandPlan(self.asm.csr_rowidx,
+                                       self.asm.csr_cols, self.n)
+        return self._band_plan
+
+    def _factorize(self, mode, data, E):
+        """The solver of one expansion from the CSR values ``data`` and
+        the element stiffness ``E``: the card's band factor (None when it
+        is not finite) or host SuperLU."""
+        asm = self.asm
+        if mode == "band_chol":
+            solver = DeviceBandCholSolver(
+                self.band_plan(), data, partial(element_matvec, asm, E))
+            return solver if solver.factor_ok() else None
         import scipy.sparse as sp
 
-        if pen:
-            G = (A.T @ A).tocsc() + pen * sp.identity(self.n, format="csc")
-            lu = host_splu(G)
-            return lambda b: lu.solve(A.T @ b)
-        return host_splu(A.tocsc()).solve
+        A = sp.csr_matrix((data.cpu().numpy(),
+                           (asm.csr_rowidx, asm.csr_cols)),
+                          shape=(self.n, self.n))
+        return HostSparseLU(A, self.hp.xcoeff_l2_penalty)
 
-    def _expand(self, xt0_np, v_np):
-        """Full expansion: device graph passes, host sparse solves."""
-        import scipy.sparse as sp
-
+    def _expand(self, xt0_np, v_np, mode=None):
+        """Full expansion (``anm.py:423-537,670-750``): the device graph
+        passes, the linear solves (on the card for band_chol, on the host
+        for host_lu), the t_k / x_k recurrence and the sanity residuals on
+        device tensors.  Returns ``(coeffs, diag)`` as NumPy.  A band
+        factor that is not finite hands this restart to host LU; one whose
+        first refined solve misses the pre-gate hands it the rest of the
+        solve."""
         hp = self.hp
         n = self.n
         asm = self.asm
         pen = hp.xcoeff_l2_penalty
-        reuse = self._fact_reusable(self._fact, xt0_np)
+        if mode is None:
+            mode = "host_lu" if pen else self._solver_mode()
+        self._last_mode = mode
+        fact = self._fact
+        if fact is not None and fact["mode"] != mode:
+            fact = None
+        reuse = self._fact_reusable(fact, xt0_np)
         self._last_fact_reused = reuse
         with ScopedProfiler("build_sparse_coeff", block=True):
             gin0 = asm.apply_in(xt0_np[:n])
             if not reuse:
-                data, _E = jac_asm(asm, self.model.elems, gin0)
+                data, E = jac_asm(asm, self.model.elems, gin0)
             self._series.start(gin0)
         if reuse:
-            A = self._fact["A"]
-            solve = self._fact["solve"]
+            solver = fact["solver"]
         else:
-            with ScopedProfiler("sparse_prep"):
-                A = sp.csr_matrix(
-                    (data.cpu().numpy(), (asm.csr_rowidx, asm.csr_cols)),
-                    shape=(n, n),
-                )
-                del data, _E
-                solve = self._splu_factorize(A, pen)
-            self._fact = {"x0": xt0_np[:n].copy(), "A": A, "solve": solve}
-        grad_t = v_np
-        with ScopedProfiler("sparse_solve"):
-            xgt = solve(grad_t)
-        t1 = 1.0 / np.sqrt(xgt @ xgt + 1.0)
+            self._fact = None  # free the old factor before the new one
+            with ScopedProfiler("sparse_prep", block=True):
+                solver = self._factorize(mode, data, E)
+                del data, E
+            if solver is None:
+                self.band_fallbacks["not_finite"] += 1
+                if verbose_mode():
+                    print("band_chol: indefinite stiffness; host-LU "
+                          "fallback")
+                return self._expand(xt0_np, v_np, "host_lu")
+            self._fact = {"mode": mode, "x0": xt0_np[:n].copy(),
+                          "solver": solver}
+        grad_t = torch.as_tensor(v_np, dtype=torch.float64).to(asm.device)
+        if mode == "band_chol":
+            xgt, gate = solver.solve(grad_t, with_resid=True)
+            gate = float(gate)
+            if not gate <= FACTOR_GATE:
+                # the first refined solve doubles as the factor-quality
+                # pre-gate: host LU for the rest of this solve (cleared
+                # by reset); auto stops taking band_chol after two strikes
+                self.band_fallbacks["gate"] += 1
+                self._solver_override = "host_lu"
+                self._fact = None
+                if verbose_mode():
+                    print("band_chol factor pre-gate failed (resid %g > "
+                          "%g); host-LU fallback" % (gate, FACTOR_GATE))
+                return self._expand(xt0_np, v_np)
+        else:
+            xgt = solver.solve(grad_t)
+        self.expansions[mode] += 1
+        t1 = 1.0 / torch.sqrt(xgt @ xgt + 1.0)
         x1 = -t1 * xgt
-        xgt_dot_x1 = x1 @ xgt
-        coeffs = np.zeros((hp.order + 1, n + 1))
-        coeffs[0] = xt0_np
-        coeffs[1, :n] = x1
-        coeffs[1, n] = t1
-        diag = []
+        denom = t1 - x1 @ xgt
+        XT = torch.zeros((hp.order + 1, n + 1), dtype=torch.float64,
+                         device=asm.device)
+        XT[0] = torch.as_tensor(xt0_np, dtype=torch.float64)
+        XT[1, :n] = x1
+        XT[1, n] = t1
         sanity = hp.sanity_check and not pen
+        diag = torch.zeros(hp.order + 1, dtype=torch.float64,
+                           device=asm.device)
         with ScopedProfiler("order_step", block=True):
-            b_dev = self._order_step(1, coeffs[1])
+            b = self._order_step(1, XT[1])
         for k in range(2, hp.order + 1):
-            with ScopedProfiler("bias_pull"):
-                b = b_dev.cpu().numpy()
-            with ScopedProfiler("sparse_solve"):
-                xb = solve(b)
-            tk = (xb @ x1) / (t1 - xgt_dot_x1)
+            xb = solver.solve(b)
+            tk = (xb @ x1) / denom
             xk = -tk * xgt - xb
-            coeffs[k, :n] = xk
-            coeffs[k, n] = tk
+            XT[k, :n] = xk
+            XT[k, n] = tk
             if sanity:
-                with ScopedProfiler("eqn_check_host"):
-                    resid = A @ xk + grad_t * tk + b
-                    scale = max(np.linalg.norm(grad_t * tk + b), 1e-30)
-                    diag.append(np.linalg.norm(resid) / scale)
+                rhs = grad_t * tk + b
+                resid = solver.apply(xk) + rhs
+                diag[k] = torch.linalg.vector_norm(resid) / torch.clamp(
+                    torch.linalg.vector_norm(rhs), min=1e-30)
             if k < hp.order:
                 with ScopedProfiler("order_step", block=True):
-                    b_dev = self._order_step(k, coeffs[k])
-        return coeffs, np.asarray(diag)
+                    b = self._order_step(k, XT[k])
+        dg = diag[2:].cpu().numpy() if sanity else np.zeros(0)
+        return XT.cpu().numpy(), dg
 
     # -- host control -----------------------------------------------------
     def init_xt0(self, x, t):
@@ -204,12 +328,24 @@ class _ANMDriverBase:
             try:
                 self._expand_and_check()
             except SANMNumericalError:
-                if not self._last_fact_reused:
+                if self._last_fact_reused:
+                    # the stale-Jacobian expansion went numerically bad:
+                    # redo this restart with a fresh factorization
+                    self._fact = None
+                    self._expand_and_check()
+                elif self._last_mode == "band_chol":
+                    # the band expansion passed the pre-gate but failed
+                    # the order checks: the factor can be the weak link;
+                    # host LU for the rest of this solve (anm.py:1320-1350)
+                    if verbose_mode():
+                        print("band_chol expansion failed checks; host-LU "
+                              "fallback")
+                    self._solver_override = "host_lu"
+                    self.band_fallbacks["checks"] += 1
+                    self._fact = None
+                    self._expand_and_check()
+                else:
                     raise
-                # the stale-Jacobian expansion went numerically bad:
-                # redo this restart with a fresh factorization
-                self._fact = None
-                self._expand_and_check()
         self._iter += 1
         if verbose_mode():
             print(
@@ -503,5 +639,6 @@ class ANMEqnSolver(ANMSolverVecScale):
         self._pade = None
         self._t_max = 0.0
         self._t_max_a = 0.0
+        self._solver_override = None
         self.solve_expansion_coeffs()
         return self

@@ -6,11 +6,15 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   ``apply_out`` (``:308-339``), once per Taylor order;
 * K3 :func:`jac_asm` replaces ``jac_asm`` of
   ``sanm_tpu/solver/anm.py:278-291`` (``batched_jacobian`` +
-  ``assemble_csr_elem``), once per restart, specialised to the NHC stress.
+  ``assemble_csr_elem``), once per restart, specialised to the NHC stress;
+* K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
+  (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
+  stiffness E, for the refinement and the sanity residual of the band
+  solve.
 
-Both scatter-adds (``apply_out`` and the CSR assembly) are summed in
-gather form from host-built inverse maps, in a fixed order and without
-atomics (``csrc/remap.cu``, ``csrc/jac_asm.cu``).  Each wrapper launches
+The scatter-adds (``apply_out``, the CSR assembly, ``element_matvec``)
+are summed in gather form from host-built inverse maps, in a fixed order
+and without atomics (``csrc/remap.cu``, ``csrc/jac_asm.cu``).  Each wrapper launches
 its kernel for tensors on the card, runs its ``*_plain`` torch version
 for tensors on the CPU, and raises for anything else.
 """
@@ -152,6 +156,39 @@ def remap_out_plain(asm: DeviceAssembler, bb, out=None):
 
 
 # ---------------------------------------------------------------------------
+# K4 element_matvec
+# ---------------------------------------------------------------------------
+
+
+def element_matvec(asm: DeviceAssembler, E, x):
+    """A x (n_rows,) from the condensed element stiffness ``E``
+    (B, Dout, Din) for ``x`` (n,): per element the (Dout x Din)
+    contraction of the gathered unknowns (the t column and the dead
+    padding read as zero), then the row sums of ``apply_out``."""
+    kernels.check(E, "E", (asm.B, asm.Dout, asm.Din), _f64)
+    kernels.check(x, "x", (asm.n,), _f64)
+    if not kernels.on_card(E, x, asm.loc_cols, asm.row_ptr):
+        return element_matvec_plain(asm, E, x)
+    out = torch.empty((asm.n_rows,), dtype=_f64, device=x.device)
+    contrib = torch.empty((asm.B * asm.Dout,), dtype=_f64, device=x.device)
+    kernels.launch("element_matvec", "sanm_element_matvec", E.data_ptr(),
+                   asm.loc_cols.data_ptr(), x.data_ptr(),
+                   asm.row_ptr.data_ptr(), asm.row_ent.data_ptr(),
+                   contrib.data_ptr(), out.data_ptr(), asm.n, asm.n_rows,
+                   asm.B * asm.Dout, asm.Dout, asm.Din)
+    return out
+
+
+def element_matvec_plain(asm: DeviceAssembler, E, x):
+    xp = torch.zeros(asm.n + 2, dtype=_f64, device=x.device)
+    xp[: asm.n] = x
+    contrib = (E * xp[asm.loc_cols.long()][:, None, :]).sum(-1)
+    acc = torch.zeros(asm.n_rows + 1, dtype=_f64, device=x.device)
+    acc.index_add_(0, asm.loc_rows.reshape(-1).long(), contrib.reshape(-1))
+    return acc[: asm.n_rows]
+
+
+# ---------------------------------------------------------------------------
 # K3 Jacobian + CSR assembly
 # ---------------------------------------------------------------------------
 
@@ -208,7 +245,7 @@ def nhc_jacobian_plain(elems: NHCElements, gin0):
 
 def jac_asm_plain(asm: DeviceAssembler, elems: NHCElements, gin0):
     J = nhc_jacobian_plain(elems, gin0)
-    E = torch.einsum("bdp,bpq,bqe->bde", asm.Lout, J, asm.Lin)
+    E = torch.einsum("bdp,bpq,bqe->bde", asm.Lout, J, asm.Lin).contiguous()
     acc = torch.zeros(asm.nnz + 1, dtype=_f64, device=gin0.device)
     acc.index_add_(0, asm.slot_pos.long(), E.reshape(-1))
     return acc[: asm.nnz].contiguous(), E

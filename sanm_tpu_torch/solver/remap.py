@@ -181,6 +181,19 @@ class SparseAssembler:
         ).astype(np.int32)
         self.has_t = bool(is_t.any())
 
+    def _diag_nnz_pos(self):
+        """``(pos, row)``: the CSR positions of the diagonal entries and
+        their rows (``sanm_tpu/solver/remap.py:380-387``)."""
+        return diag_nnz_pos(self.csr_rowidx, self.csr_cols)
+
+
+def diag_nnz_pos(csr_rowidx, csr_cols):
+    """The CSR positions ``pos`` with ``rowidx == cols`` and their rows,
+    both int32, in CSR order."""
+    rowidx = np.asarray(csr_rowidx)
+    sel = np.nonzero(rowidx == np.asarray(csr_cols))[0]
+    return sel.astype(np.int32), rowidx[sel].astype(np.int32)
+
 
 def inverse_maps(loc_rows, n_rows, slot_pos, nnz):
     """Gather-form maps for the deterministic device sums:

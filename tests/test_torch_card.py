@@ -76,3 +76,101 @@ def test_nhc_series(models):
         bc = sc.step(k, c.asm.apply_in(xk))
         assert rel(bg, bc) <= TOL, k
         assert rel(sg.hist[k], sc.hist[k]) <= TOL, k
+
+
+# K4 and K5 against their plain versions.  Tolerances (relative to the
+# largest magnitude): band_assemble 1e-14 (the same products; the scale
+# is 1/sqrt on the card, rsqrt in torch), band_factor 1e-10 (f64 Cholesky
+# and triangular inverses summed in another order, growing with the
+# blocks' conditioning), band_solve 1e-12 and element_matvec 1e-12 (f64
+# sums in another order).
+BAND_TOL = {"band_assemble": 1e-14, "band_factor": 1e-10,
+            "band_solve": 1e-12, "element_matvec": 1e-12}
+
+
+def band_systems(models):
+    """The cuboid's Jacobian at a perturbed state (cuda and cpu; moves of
+    up to 1% of the 0.025 m spacing keep its stiffness definite) and a
+    random SPD system of 800 unknowns, as (rows, cols, data_cuda,
+    data_cpu, matvec_cuda, n)."""
+    import torch_helper as th
+    from sanm_tpu_torch.solver import assemble as K
+
+    g, c = models["cuda"], models["cpu"]
+    x = g.x0() + np.random.default_rng(4).uniform(-2e-4, 2e-4, g.asm.n)
+    data_g, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    data_c, _ = K.jac_asm(c.asm, c.elems, c.asm.apply_in(x))
+    out = [(g.asm.csr_rowidx, g.asm.csr_cols, data_g, data_c,
+            lambda v: K.element_matvec(g.asm, E_g, v), g.asm.n)]
+    A = th.random_sparse_spd(800, 61, np.random.default_rng(3))
+    rows, cols, vals = th.coo_of(A)
+    dg = torch.as_tensor(vals).cuda()
+    out.append((rows, cols, dg, torch.as_tensor(vals),
+                th.torch_matvec(rows, cols, dg, 800), 800))
+    return out
+
+
+def test_band_kernels(models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import band as K5
+
+    for rows, cols, data_g, data_c, mv, n in band_systems(models):
+        plan = K5.BandPlan(rows, cols, n)
+        n0 = dict(kernels.LAUNCHES)
+        band_g, sc_g = K5.band_assemble(plan, data_g)
+        band_c, sc_c = K5.band_assemble(plan, data_c)
+        assert rel(band_g, band_c) <= BAND_TOL["band_assemble"]
+        assert rel(sc_g, sc_c) <= BAND_TOL["band_assemble"]
+        # both factors from the card's band
+        band_p = band_g.cpu()
+        pan_g = K5.band_factor(plan, band_g)
+        pan_p = K5.band_factor_plain(plan, band_p)
+        assert K5.band_factor_ok(pan_p) and K5.band_factor_ok(pan_g)
+        assert rel(pan_g, pan_p) <= BAND_TOL["band_factor"]
+        rhs = torch.as_tensor(np.random.default_rng(5).standard_normal(n))
+        y_g = K5.band_solve(plan, pan_g, rhs.cuda())
+        y_c = K5.band_solve_plain(plan, pan_g.cpu(), rhs)
+        assert rel(y_g, y_c) <= BAND_TOL["band_solve"]
+        # the refined solver converges on the card
+        solver = K5.DeviceBandCholSolver(plan, data_g, mv)
+        x, res = solver.solve(rhs.cuda(), with_resid=True)
+        assert float(res) <= 1e-12
+        # the negated (indefinite) system gives NaN
+        neg = K5.DeviceBandCholSolver(plan, -data_g, mv)
+        assert not neg.factor_ok()
+        torch.cuda.synchronize()
+        for name, count in (("band_assemble", 3), ("band_factor", 3),
+                            ("band_solve", 2)):
+            assert kernels.LAUNCHES[name] >= n0[name] + count, name
+
+
+def test_band_factor_indefinite_state(models):
+    """The cuboid's Jacobian at moves of up to 8% of the spacing is
+    indefinite: the kernel's factor, like the plain one, holds NaN."""
+    from sanm_tpu_torch.solver import assemble as K
+    from sanm_tpu_torch.solver import band as K5
+
+    g = models["cuda"]
+    x = g.x0() + np.random.default_rng(4).uniform(-2e-3, 2e-3, g.asm.n)
+    data, _ = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    plan = K5.BandPlan(g.asm.csr_rowidx, g.asm.csr_cols, g.asm.n)
+    band, _ = K5.band_assemble(plan, data)
+    band_p = band.cpu()
+    assert not K5.band_factor_ok(K5.band_factor(plan, band))
+    assert not K5.band_factor_ok(K5.band_factor_plain(plan, band_p))
+
+
+def test_element_matvec(models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    g, c = models["cuda"], models["cpu"]
+    x = g.x0() + np.random.default_rng(6).uniform(-2e-3, 2e-3, g.asm.n)
+    _, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    v = torch.as_tensor(np.random.default_rng(7).standard_normal(g.asm.n))
+    n0 = kernels.LAUNCHES["element_matvec"]
+    got = K.element_matvec(g.asm, E_g, v.cuda())
+    want = K.element_matvec_plain(c.asm, E_g.cpu(), v)
+    assert rel(got, want) <= BAND_TOL["element_matvec"]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["element_matvec"] == n0 + 1

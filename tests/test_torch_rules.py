@@ -7,6 +7,8 @@
 * An entry point without CUDA raises unless the caller passes
   ``device="cpu"``; a wrapper given anything but CPU or card tensors
   raises; the kernel build without ``nvcc`` raises.  None falls back.
+* ``auto`` takes host LU on the CPU; the band path runs there only when
+  asked for, through the plain versions.
 """
 
 import ast
@@ -15,6 +17,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -106,7 +109,7 @@ def test_wrappers_do_not_fall_back():
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
                                     MaterialProperty, TetrahedralMesh)
     from sanm_tpu_torch.ops.nhc_series import NHCSeries
-    from sanm_tpu_torch.solver import assemble
+    from sanm_tpu_torch.solver import assemble, band
 
     body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
                           TetrahedralMesh.make_cuboid(3, 2, 2, 0.1))
@@ -126,8 +129,61 @@ def test_wrappers_do_not_fall_back():
     series = NHCSeries(model.elems, 4)
     with pytest.raises(SANMError):  # order out of range
         series.step(4, torch.zeros(asm.B, 9, dtype=torch.float64))
+    # K4 and K5: wrong device, dtype, shape, contiguity, block size
+    E = torch.zeros(asm.B, asm.Dout, asm.Din, dtype=torch.float64)
+    x = torch.zeros(asm.n, dtype=torch.float64)
+    with pytest.raises(SANMError):
+        assemble.element_matvec(asm, E.to("meta"), x.to("meta"))
+    with pytest.raises(SANMError):
+        assemble.element_matvec(asm, E, x.float())
+    with pytest.raises(SANMError):
+        assemble.element_matvec(asm, E.transpose(1, 2), x)
+    plan = band.BandPlan(asm.csr_rowidx, asm.csr_cols, asm.n, 64)
+    data = torch.ones(asm.nnz, dtype=torch.float64)
+    with pytest.raises(SANMError):
+        band.band_assemble(plan, data.to("meta"))
+    with pytest.raises(SANMError):
+        band.band_assemble(plan, data[:-1])
+    bnd, scale = band.band_assemble(plan, data)
+    with pytest.raises(SANMError):
+        band.band_factor(plan, bnd.to("meta"))
+    with pytest.raises(SANMError):
+        band.band_factor(plan, bnd[:, :-1])
+    panels = band.band_factor(plan, bnd)
+    with pytest.raises(SANMError):
+        band.band_solve(plan, panels.to("meta"), x.to("meta"))
+    with pytest.raises(SANMError):
+        band.band_solve(plan, panels, x[:-1])
+    with pytest.raises(SANMError):  # the kernels take s = 128 only
+        band._kernel_block(plan)
     # the CPU path ran no kernel
     series.start(assemble.remap_in(asm, asm.pad_vector(model.x0())))
+    band.band_solve(plan, panels, x)
+    assemble.element_matvec(asm, E, x)
+    assert kernels.LAUNCHES == before
+
+
+def test_auto_takes_host_lu_on_the_cpu():
+    """``auto`` resolves to host LU on the CPU (the band path is taken on
+    the card only), and an explicit ``band_chol`` runs the plain versions
+    there without counting a launch."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.solver import ANMEqnSolver, EqnHyperParam
+
+    mesh = TetrahedralMesh.make_cuboid(3, 2, 2, 0.1)
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          mesh)
+    body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.05, :] = True
+    model = body.make_forward(EnergyModel.NEOHOOKEAN_C, device="cpu")
+    f = np.zeros(model.x0().size)
+    f[2::3] = -1e-3
+    before = dict(kernels.LAUNCHES)
+    for solver, mode in (("auto", "host_lu"), ("band_chol", "band_chol")):
+        s = ANMEqnSolver(model, model.x0(), f,
+                         EqnHyperParam(order=4, solver=solver))
+        assert s._solver_mode() == mode and s._fact["mode"] == mode
     assert kernels.LAUNCHES == before
 
 

@@ -42,7 +42,7 @@ def solve_jax(fz, pen):
     return s, x, rms
 
 
-def solve_port(fz, pen):
+def solve_port(fz, pen, solver="auto"):
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
                                     MaterialProperty, TetrahedralMesh)
     from sanm_tpu_torch.fea.app import RMS_THRESH_FORCE_EQU, run_anm_eqn
@@ -58,7 +58,8 @@ def solve_port(fz, pen):
     model = body.make_forward(EnergyModel.NEOHOOKEAN_C, device="cpu")
     f_sub = model.lt_inp.copy_vtx_values(
         cuboid_load(mesh, c["nx"], c["spacing"], fz))
-    hp = EqnHyperParam(order=ORDER, use_pade=True, xcoeff_l2_penalty=pen)
+    hp = EqnHyperParam(order=ORDER, use_pade=True, xcoeff_l2_penalty=pen,
+                       solver=solver)
     hp.converge_rms = RMS_THRESH_FORCE_EQU
     hp.solution_check_tol = 1e-3
     s = ANMEqnSolver(model, model.x0(), f_sub, hp)
@@ -139,7 +140,8 @@ def test_gravity_cli_stat_keys(tmp_path, monkeypatch):
     monkeypatch.delenv("SANM_WARM_TIMING", raising=False)
     jstat = gravity(dict(task), str(tmp_path)).stat
     assert set(jstat) <= set(port)
-    assert set(port) - set(jstat) == {"device"}
+    assert set(port) - set(jstat) == {"device", "expansions",
+                                      "band_fallbacks"}
     assert port["iter"] == jstat["iter"]
     assert port["mesh_V"] == jstat["mesh_V"]
     assert port["mesh_F"] == jstat["mesh_F"]

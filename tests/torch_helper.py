@@ -77,3 +77,47 @@ def write_tetgen(mesh, base):
         f.write("%d 1\n" % len(mesh.surfaces))
         for i, t in enumerate(mesh.surfaces):
             f.write("%d %d %d %d -1 # face\n" % (i, *t))
+
+
+def random_sparse_spd(n, half_bw, rng, density=0.3):
+    """The random system of ``tests/test_band.py:_random_sparse_spd``:
+    -A for an SPD A with entries only inside |i-j| <= half_bw, in a
+    scrambled ordering (so the band plan's RCM has real work); CSR."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = [], [], []
+    for i in range(n):
+        for j in range(max(0, i - half_bw), i):
+            if rng.uniform() < density:
+                v = rng.standard_normal() * 0.3
+                rows += [i, j]
+                cols += [j, i]
+                vals += [v, v]
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    d = np.abs(A).sum(axis=1).A1 + rng.uniform(1.0, 2.0, n)
+    A = A + sp.diags(d)
+    p = rng.permutation(n)
+    A = A[p][:, p].tocoo()
+    return -sp.csr_matrix((A.data, (A.row, A.col)), shape=(n, n))
+
+
+def coo_of(A):
+    """``(rows, cols, vals)`` of a CSR matrix in COO order (int32 indices),
+    as ``tests/test_band.py``'s stub assembler holds them."""
+    coo = A.tocoo()
+    return (coo.row.astype(np.int32), coo.col.astype(np.int32),
+            coo.data.copy())
+
+
+def torch_matvec(rows, cols, vals, n):
+    """x -> A x for COO arrays, in torch on the device of ``vals``."""
+    import torch
+
+    r = torch.as_tensor(rows, dtype=torch.int64, device=vals.device)
+    c = torch.as_tensor(cols, dtype=torch.int64, device=vals.device)
+
+    def mv(x):
+        out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, r, vals * x[c])
+
+    return mv
