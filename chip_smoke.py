@@ -26,11 +26,23 @@ Phases, each timed:
    2..20); kernel, plain and (where one PyTorch call computes the same
    function) library times, and the least time the card could take
    (``bound``);
-6. parity: NHC equilibrium of a small cuboid, order 20, solved through
-   the kernels and through the plain versions on the CPU, with host LU
-   and with the band solver: same iterations, coordinates within
+6. arap: ``gravity`` on armadillo-small with ``override_arap.json`` and
+   ``override_stiff_material.json`` (ARAP, the reference protocol's
+   cell), cold and warm, with ``"solver": "host_lu"`` and with
+   ``"solver": "band_chol"``: force-RMS <= 1e-10, no inverted element,
+   K8a-c (svd_w, arap_step, jac_asm_arap) launched in each run, the two
+   equilibria within ``BAND_COORD_RTOL``; a fallback of the band factor
+   to host LU is counted and printed, and passes if the run converges;
+7. arap kernels: K8a (svd_w), K8c (jac_asm_arap) at the ARAP equilibrium
+   and K8b (arap_step) along a real first ARAP restart (bias orders
+   2..20), each against its plain version, with K8a's flip choice
+   compared element by element (also on the equilibrium's mirror image,
+   where every element flips), timed as in 5;
+8. parity: NHC and ARAP equilibria of a small cuboid, order 20, solved
+   through the kernels and through the plain versions on the CPU, with
+   host LU and with the band solver: same iterations, coordinates within
    ``PARITY_RTOL``;
-7. profile: one warm band_chol re-solve of armadillo-small under
+9. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
@@ -52,6 +64,9 @@ import time
 BUDGET_S = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "armadillo_small.json")
+# the ARAP cell: armadillo-small with the ARAP and stiff-material overrides
+ARAP_CONFIGS = [CONFIG] + [os.path.join(ROOT, "configs", f) for f in (
+    "override_arap.json", "override_stiff_material.json")]
 # H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
 # TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -61,10 +76,19 @@ PEAK_F64_TC_S = 67e12
 # f64 sums in another order (and with fused multiply-adds) than torch's;
 # band_assemble computes the same products (1/sqrt on the card, rsqrt in
 # torch); band_factor's Cholesky and triangular inverses round in
-# another order, which the blocks' conditioning amplifies
+# another order, which the blocks' conditioning amplifies; svd_w is
+# compared on s, W and the stretch U diag(|s|) U^T (U alone is not unique
+# where singular values nearly tie), arap_step per component group through
+# 19 orders of recurrences
 TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "nhc_step": 1e-11, "element_matvec": 1e-12, "band_assemble": 1e-14,
-       "band_factor": 1e-10, "band_solve": 1e-12}
+       "band_factor": 1e-10, "band_solve": 1e-12, "svd_w": 1e-12,
+       "arap_step": 1e-11, "jac_asm_arap": 1e-12}
+# svd_w on the mirrored equilibrium, where every element flips: a single
+# flipped member of a pair of singular values closer than GROUP_EPS makes
+# W depend on that pair's columns of U, which are fixed only to about
+# 1e-16 / (their gap)
+MIRROR_TOL = 1e-10
 PARITY_RTOL = 1e-9
 RMS_TARGET = 1e-10
 # band vs host-LU equilibrium, max |diff| / max displacement: both stop
@@ -73,6 +97,7 @@ RMS_TARGET = 1e-10
 BAND_COORD_RTOL = 1e-6
 KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
            "band_assemble", "band_factor", "band_solve")
+ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -82,6 +107,9 @@ REPLACES = {
     "band_assemble": "sanm_tpu/solver/band.py:225",
     "band_factor": "sanm_tpu/solver/band.py:247",
     "band_solve": "sanm_tpu/solver/band.py:321",
+    "svd_w": "sanm_tpu/ops/svd_w.py:60",
+    "arap_step": "sanm_tpu/ops/svd_w.py:469",
+    "jac_asm_arap": "sanm_tpu/ops/svd_w.py:173",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -92,6 +120,9 @@ SOURCES = {
     "band_assemble": "sanm_tpu_torch/csrc/band.cu",
     "band_factor": "sanm_tpu_torch/csrc/band.cu",
     "band_solve": "sanm_tpu_torch/csrc/band.cu",
+    "svd_w": "sanm_tpu_torch/csrc/svd_w.cu",
+    "arap_step": "sanm_tpu_torch/csrc/arap_series.cu",
+    "jac_asm_arap": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -278,6 +309,23 @@ def rel_err(a, b):
     return d, d / s if s > 0 else d
 
 
+def reporter(rows):
+    """``report(name, err, rel, ms, plain_ms, bound, lib_ms, extra)``:
+    check a kernel's error against ``TOL``, print its row and keep it in
+    ``rows``."""
+    def report(name, err, rel, ms, plain_ms, bnd, lib_ms=None, extra=""):
+        b_ms, b_by = bnd
+        require(rel <= TOL[name], "%s disagrees with its plain version: "
+                "rel err %.3g > %.1g" % (name, rel, TOL[name]))
+        say("kernel %-9s max_abs_err=%.3e rel=%.3e (tol %.0e) ms=%.4f "
+            "plain_ms=%.4f bound_us=%.2f (%s) library_ms=%s %s"
+            % (name, err, rel, TOL[name], ms, plain_ms, b_ms * 1e3, b_by,
+               "%.4f" % lib_ms if lib_ms is not None else "null", extra))
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return report
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -319,26 +367,109 @@ def rest_vertices():
     return body.mesh.vertices
 
 
-def armadillo_model():
+def armadillo_model(configs=(CONFIG,)):
     """The gravity task's model on the card (its own host set-up,
-    ``app.gravity_setup``) and the load vector."""
+    ``app.gravity_setup``) and the load vector, for the task of the
+    merged ``configs``."""
     from sanm_tpu_torch.fea import app
 
-    cfg = app.read_json(CONFIG)
+    cfg = app.merge_configs(list(configs))
     body, f_full, _ = app.gravity_setup(cfg, os.path.dirname(CONFIG))
     model = body.make_forward(app.energy_model_of(cfg), device="cuda")
     return model, model.lt_inp.copy_vtx_values(f_full)
 
 
-def phase_kernels(torch, timing, verts_eq):
-    """Each kernel against its plain version; ``verts_eq`` are the
-    vertices of the equilibrium the slice converged to."""
+def first_restart(model, f_load, series, step, order=20, x0=None):
+    """Drive a real ANM restart of ``model`` from ``x0`` (default: its
+    rest shape; f(x0) + y as the homotopy) through host LU:
+    ``series.start`` at x0, then for k = 1..order-1 ``step(k, gin_k)``
+    commits order k and returns the order-(k+1) bias (B, 9), from which
+    the host solve gives the next coefficient."""
     import numpy as np
     import scipy.sparse as sp
 
-    from sanm_tpu_torch.ops import nhc_series as K1
     from sanm_tpu_torch.solver import assemble as K23
     from sanm_tpu_torch.solver.linear import host_splu
+
+    asm = model.asm
+    n = asm.n
+    gin0 = K23.remap_in(asm, asm.pad_vector(model.x0() if x0 is None
+                                            else x0))
+    data0, _ = model.jac_asm(gin0)
+    A = sp.csr_matrix((data0.cpu().numpy(), (asm.csr_rowidx, asm.csr_cols)),
+                      shape=(n, n))
+    del data0
+    solve = host_splu(A.tocsc()).solve
+    xgt = solve(K23.remap_out(asm, model.stress(gin0)).cpu().numpy()
+                + f_load)
+    t1 = 1.0 / np.sqrt(xgt @ xgt + 1.0)
+    x1 = -t1 * xgt
+    series.start(gin0)
+    xt_k = np.concatenate([x1, [t1]])
+    for k in range(1, order):
+        b = step(k, asm.apply_in(xt_k))
+        xb = solve(K23.remap_out(asm, b).cpu().numpy())
+        tk = (xb @ x1) / (t1 - x1 @ xgt)
+        xt_k = np.concatenate([-tk * xgt - xb, [tk]])
+        require(np.isfinite(xt_k).all(),
+                "non-finite series at order %d" % (k + 1))
+
+
+def series_row(timing, label, model, f_load, series, kernel, plain, groups,
+               rows, bound_of, on_bias=None, x0=None):
+    """A series kernel against its plain version along
+    :func:`first_restart` from ``x0`` (bias orders 2..20): per order k the
+    plain step
+    runs on a copy of the history rows the step reads and writes
+    (``rows(hist, k)``), then the kernel on the live ones; errors of the
+    bias and of order k's component ``groups``, kernel and plain times
+    and the bound ``bound_of(k)``.  ``on_bias(b)`` sees each bias.
+    Returns the largest absolute and relative error and the mean kernel,
+    plain and bound ms."""
+    import numpy as np
+
+    import torch
+
+    elems = model.elems
+    worst, err_k, ms_k, plain_k, bnd_k = 0.0, 0.0, [], [], []
+
+    def step(k, gin_k):
+        nonlocal worst, err_k
+        hist_k = rows(series.hist, k)
+        snap = hist_k.clone()
+        b_plain = torch.empty_like(series.bias_out)
+        plain(snap, k, gin_k, elems, b_plain)
+        b = series.step(k, gin_k)
+        e_b, r_b = rel_err(b, b_plain)
+        r_h = max(rel_err(series.hist[k, sl], snap[k, sl])[1]
+                  for sl in groups)
+        worst, err_k = max(worst, r_b, r_h), max(err_k, e_b)
+        ms = timing.kernel_ms(lambda: kernel(hist_k, k, gin_k, elems,
+                                             series.bias_out), reps=5)
+        pms = timing.ms(lambda: plain(snap, k, gin_k, elems, b_plain),
+                        reps=2, warmup=1)
+        bnd = bound_of(k)
+        ms_k.append(ms)
+        plain_k.append(pms)
+        bnd_k.append(bnd[0])
+        if k in (1, 9, 19):
+            say("  %s bias order %2d: rel err bias %.2e hist %.2e, ms=%.4f "
+                "plain_ms=%.3f bound_us=%.2f (%s)"
+                % (label, k + 1, r_b, r_h, ms, pms, bnd[0] * 1e3, bnd[1]))
+        if on_bias is not None:
+            on_bias(b)
+        return b
+
+    first_restart(model, f_load, series, step, x0=x0)
+    return (err_k, worst, float(np.mean(ms_k)), float(np.mean(plain_k)),
+            float(np.mean(bnd_k)))
+
+
+def phase_kernels(torch, timing, verts_eq):
+    """Each kernel against its plain version; ``verts_eq`` are the
+    vertices of the equilibrium the slice converged to."""
+    from sanm_tpu_torch.ops import nhc_series as K1
+    from sanm_tpu_torch.solver import assemble as K23
 
     t0 = time.perf_counter()
     model, f_load = armadillo_model()
@@ -348,17 +479,7 @@ def phase_kernels(torch, timing, verts_eq):
         "timing spin %.3f ms" % (B, n, asm.nnz, asm.Din, asm.Dout,
                                  time.perf_counter() - t0, timing.cover_ms))
     rows = {}
-
-    def report(name, err, rel, ms, plain_ms, bnd, lib_ms=None, extra=""):
-        b_ms, b_by = bnd
-        require(rel <= TOL[name], "%s disagrees with its plain version: "
-                "rel err %.3g > %.1g" % (name, rel, TOL[name]))
-        say("kernel %-9s max_abs_err=%.3e rel=%.3e (tol %.0e) ms=%.4f "
-            "plain_ms=%.4f bound_us=%.2f (%s) library_ms=%s %s"
-            % (name, err, rel, TOL[name], ms, plain_ms, b_ms * 1e3, b_by,
-               "%.4f" % lib_ms if lib_ms is not None else "null", extra))
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    report = reporter(rows)
 
     # ---- K2 remap_in at the deformed equilibrium ----
     x_eq = model.lt_inp.copy_vtx_values(verts_eq)
@@ -425,67 +546,25 @@ def phase_kernels(torch, timing, verts_eq):
                        2 * nent * 9 + nent)
     del S_out
 
-    # ---- K1 along a real first restart from the rest shape (f(x0) + y
-    # as the homotopy) ----
-    gin0 = K23.remap_in(asm, asm.pad_vector(model.x0()))
-    data0, _ = K23.jac_asm(asm, elems, gin0)
-    A = sp.csr_matrix((data0.cpu().numpy(), (asm.csr_rowidx, asm.csr_cols)),
-                      shape=(n, n))
-    del data0
-    solve = host_splu(A.tocsc()).solve
-    v = K23.remap_out(asm, model.stress(gin0)).cpu().numpy() + f_load
-    xgt = solve(v)
-    t1 = 1.0 / np.sqrt(xgt @ xgt + 1.0)
-    x1 = -t1 * xgt
-    order = 20
-    series = K1.NHCSeries(elems, order)
-    series.start(gin0)
-    xt_k = np.concatenate([x1, [t1]])
-    worst, ms_k, plain_k, bnd_k, err_k = 0.0, [], [], [], 0.0
-    for k in range(1, order):
-        gin_k = asm.apply_in(xt_k)
-        hist_k = series.hist[: k + 2]  # rows the step reads and writes
-        snap = hist_k.clone()
-        b_plain = torch.empty_like(series.bias_out)
-        K1.nhc_step_plain(snap, k, gin_k, elems, b_plain)
-        b = series.step(k, gin_k)
-        e_b, r_b = rel_err(b, b_plain)
-        r_h = max(rel_err(series.hist[k, sl], snap[k, sl])[1]
-                  for sl in K1.GROUPS)
-        worst = max(worst, r_b, r_h)
-        err_k = max(err_k, e_b)
-        ms = timing.kernel_ms(lambda: K1.nhc_step(
-            hist_k, k, gin_k, elems, series.bias_out), reps=5)
-        pms = timing.ms(lambda: K1.nhc_step_plain(snap, k, gin_k, elems,
-                                                  b_plain), reps=2, warmup=1)
-        m = k + 1
-        # reads the 23 history components of orders < k, gin, Dm^-1;
-        # writes order k's components and the bias
-        bnd = bound_ms(8 * B * (K1.NCOMP * (k + 1) + 27), B * k1_flops(k))
-        ms_k.append(ms)
-        plain_k.append(pms)
-        bnd_k.append(bnd[0])
-        if k in (1, 9, 19):
-            say("  K1 bias order %2d: rel err bias %.2e hist %.2e, ms=%.4f "
-                "plain_ms=%.3f bound_us=%.2f (%s)"
-                % (m, r_b, r_h, ms, pms, bnd[0] * 1e3, bnd[1]))
-        del snap
-        # remap_out on this real bias, then the next order's coefficient
-        # through the host solve
-        rb = K23.remap_out(asm, b)
-        e_o, r_o = rel_err(rb, K23.remap_out_plain(asm, b))
+    # ---- K1 along a real first restart from the rest shape; remap_out
+    # also on each of its biases ----
+    def on_bias(b):
+        nonlocal out_err, out_rel
+        e_o, r_o = rel_err(K23.remap_out(asm, b), K23.remap_out_plain(asm, b))
         out_err, out_rel = max(out_err, e_o), max(out_rel, r_o)
-        xb = solve(rb.cpu().numpy())
-        tk = (xb @ x1) / (t1 - x1 @ xgt)
-        xt_k = np.concatenate([-tk * xgt - xb, [tk]])
-        require(np.isfinite(xt_k).all(), "non-finite series at order %d" % m)
-    report("nhc_step", err_k, worst, float(np.mean(ms_k)),
-           float(np.mean(plain_k)), (float(np.mean(bnd_k)), "bytes"),
+
+    # reads the 23 history components of orders <= k, gin, Dm^-1; writes
+    # order k's components and the bias
+    err_k, worst, ms_k, plain_k, bnd_k = series_row(
+        timing, "K1", model, f_load, K1.NHCSeries(elems, 20), K1.nhc_step,
+        K1.nhc_step_plain, K1.GROUPS, lambda h, k: h[: k + 2],
+        lambda k: bound_ms(8 * B * (K1.NCOMP * (k + 1) + 27),
+                           B * k1_flops(k)), on_bias)
+    report("nhc_step", err_k, worst, ms_k, plain_k, (bnd_k, "bytes"),
            extra="(mean over the 19 per-order launches of one restart)")
     report("remap_out", out_err, out_rel, out_ms, out_plain_ms, out_bnd,
            lib_out, "(error over the equilibrium stress and the 19 K1 "
            "biases; times on the stress; library err %.1e)" % err_lib_out)
-    del series
     torch.cuda.empty_cache()
     phase_done("kernels", t0)
     return rows
@@ -614,7 +693,7 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
     torch.cuda.empty_cache()
 
 
-def cuboid_solve(device, solver):
+def cuboid_solve(device, solver, energy_model):
     import numpy as np
 
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
@@ -629,7 +708,8 @@ def cuboid_solve(device, solver):
     body.coord_fixed_mask[mesh.vertices[:, 0] <= h / 2, :] = True
     f = np.zeros((mesh.nr_vertices, 3))
     f[mesh.vertices[:, 0] > (nx - 1) * h - h / 2, 2] = -200.0
-    model = body.make_forward(EnergyModel.NEOHOOKEAN_C, device=device)
+    model = body.make_forward(EnergyModel.from_name(energy_model),
+                              device=device)
     fs = model.lt_inp.copy_vtx_values(f)
     hp = EqnHyperParam(order=20, use_pade=True, solver=solver)
     hp.converge_rms = RMS_THRESH_FORCE_EQU
@@ -649,39 +729,45 @@ def phase_parity():
 
     t0 = time.perf_counter()
     threads = torch.get_num_threads()
-    for solver in ("host_lu", "band_chol"):
-        it_c, x_c, rms_c = cuboid_solve("cuda", solver)
-        # the plain band factor is many small BLAS calls, which a pool of
-        # CPU threads slows down
-        torch.set_num_threads(1)
-        try:
-            it_p, x_p, rms_p = cuboid_solve("cpu", solver)
-        finally:
-            torch.set_num_threads(threads)
-        rel = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
-        say("parity cuboid (225 tets, order 20, %s): iter card %d / cpu "
-            "%d, force-RMS card %.3e / cpu %.3e, coord rel diff %.3e (tol "
-            "%.0e)" % (solver, it_c, it_p, rms_c, rms_p, rel, PARITY_RTOL))
-        require(it_c == it_p, "iterations differ between card and CPU")
-        require(rel <= PARITY_RTOL, "card and CPU solutions differ")
-        require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
+    for em in ("neohookean_c", "arap"):
+        for solver in ("host_lu", "band_chol"):
+            it_c, x_c, rms_c = cuboid_solve("cuda", solver, em)
+            # the plain band factor is many small BLAS calls, which a pool
+            # of CPU threads slows down
+            torch.set_num_threads(1)
+            try:
+                it_p, x_p, rms_p = cuboid_solve("cpu", solver, em)
+            finally:
+                torch.set_num_threads(threads)
+            rel = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
+            say("parity cuboid (225 tets, %s, order 20, %s): iter card %d / "
+                "cpu %d, force-RMS card %.3e / cpu %.3e, coord rel diff %.3e "
+                "(tol %.0e)" % (em, solver, it_c, it_p, rms_c, rms_p, rel,
+                                PARITY_RTOL))
+            require(it_c == it_p, "iterations differ between card and CPU")
+            require(rel <= PARITY_RTOL, "card and CPU solutions differ")
+            require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
     phase_done("parity", t0)
 
 
-def run_gravity(torch, solver):
-    """``app.gravity`` on armadillo-small with ``solver``, cold and one warm
-    re-solve, with the profiler on and the launch counts set to 0 just
-    before; returns the task result, the counts and the scope stats."""
+def run_gravity(torch, solver, configs=(CONFIG,), label=None,
+                allow_fallback=False):
+    """``app.gravity`` on armadillo-small (the task of the merged
+    ``configs``) with ``solver``, cold and one warm re-solve, with the
+    profiler on and the launch counts set to 0 just before; returns the
+    task result, the counts and the scope stats.  ``allow_fallback``
+    accepts a band solve that fell back to host LU (``mixed``)."""
     from sanm_tpu_torch import kernels
     import numpy as np
 
     from sanm_tpu_torch.fea import app
     from sanm_tpu_torch.utils import ScopedProfiler
 
+    label = label or solver
     os.environ["SANM_WARM_TIMING"] = "1"
     ScopedProfiler.enabled = True
     ScopedProfiler.reset()
-    cfg = dict(app.read_json(CONFIG), solver=solver)
+    cfg = dict(app.merge_configs(list(configs)), solver=solver)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -700,18 +786,20 @@ def run_gravity(torch, solver):
     ScopedProfiler.enabled = False
     st = res.stat
     say("%s: iterations=%d solver_resolved=%s" % (
-        solver, st["iter"], st["solver_resolved"]))
+        label, st["iter"], st["solver_resolved"]))
     say("%s: force_rms_recomp=%.3e (target %.0e) nr_inverted=%d "
-        "displacement=%.4g" % (solver, st["force_rms_recomp"], RMS_TARGET,
+        "displacement=%.4g" % (label, st["force_rms_recomp"], RMS_TARGET,
                                 st["nr_inverted"], st["displacement"]))
     say("%s: time_solve cold=%.3f s warm=%.3f s time_prep=%.3f s"
-        % (solver, st["time_solve"], st["time_solve_warm"], st["time_prep"]))
-    say("%s: launches %s" % (solver, json.dumps(launches)))
+        % (label, st["time_solve"], st["time_solve_warm"], st["time_prep"]))
+    say("%s: launches %s" % (label, json.dumps(launches)))
     require(np.isfinite(res.mesh.vertices).all()
             and res.mesh.vertices.shape == (13665, 3), "bad output mesh")
     require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
     require(st["nr_inverted"] == 0, "inverted elements")
-    require(st["solver_resolved"] == solver, "solver %s not taken" % solver)
+    ran = st["solver_resolved"]
+    require(ran == solver or (allow_fallback and ran == "mixed"),
+            "solver %s not taken (%s ran)" % (solver, ran))
     return res, launches, per
 
 
@@ -771,6 +859,172 @@ def phase_band(torch, verts_lu, verts_rest):
     return launches, res.stat, verts, solver
 
 
+def phase_arap(torch, verts_rest):
+    """The ARAP cell on host LU and on the band solver; a band fallback
+    to host LU is counted, printed with its restart, and accepted when
+    the run converges."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {}
+    for solver in ("host_lu", "band_chol"):
+        label = "arap " + solver
+        res, launches, per = run_gravity(torch, solver, ARAP_CONFIGS, label,
+                                         allow_fallback=solver == "band_chol")
+        st = res.stat
+        say("%s: expansions %s, fallbacks to host LU %s at (restart, kind) "
+            "%s; factor s/restart=%.4f (%d)  solve ms/solve=%.4f (%d)  "
+            "step ms/order=%.4f (%d)  jac+start s/restart=%.4f (%d)  f(x0) "
+            "s=%.4f (%d)" % (
+                label, json.dumps(st["expansions"]),
+                json.dumps(st["band_fallbacks"]),
+                res.solver.band_fallback_log,
+                per["sparse_prep"][1], per["sparse_prep"][0],
+                per["sparse_solve"][1] * 1e3, per["sparse_solve"][0],
+                per["order_step"][1] * 1e3, per["order_step"][0],
+                per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
+                per["eval_fx0"][1], per["eval_fx0"][0]))
+        for name in ARAP_KERNELS + ("remap_in", "remap_out"):
+            require(launches[name] > 0, "kernel %s was not launched on the "
+                    "ARAP %s path" % (name, solver))
+        require(launches["nhc_step"] == 0 and launches["jac_asm"] == 0,
+                "an NHC kernel ran on the ARAP path")
+        out[solver] = (res, launches)
+    verts_lu = out["host_lu"][0].mesh.vertices
+    verts = out["band_chol"][0].mesh.vertices
+    disp = float(np.abs(verts_lu - verts_rest).max())
+    diff = float(np.abs(verts - verts_lu).max()) / disp
+    say("arap: band_chol vs host_lu coordinates: max diff / max "
+        "displacement %.3e (tol %.0e)" % (diff, BAND_COORD_RTOL))
+    require(diff <= BAND_COORD_RTOL, "ARAP band and host-LU equilibria "
+            "differ")
+    phase_done("arap", t0)
+    stats = {s: r.stat for s, (r, _) in out.items()}
+    return out["band_chol"][1], stats, verts
+
+
+def svd_w_check(torch, m):
+    """K8a against its plain version on ``m``: the
+    largest error of s, W and the stretch U diag(|s|) U^T (absolute,
+    relative) and the number of elements whose flip choice (the signs of
+    s) differs."""
+    from sanm_tpu_torch.ops import svd_w as K8a
+
+    u, s, w = K8a.svd_w(m)
+    pu, ps, pw = K8a.svd_w_plain(m)
+
+    def stretch(u, s):
+        return (u * s.abs()[:, None, :]) @ u.transpose(1, 2)
+
+    errs = [rel_err(s, ps), rel_err(w, pw),
+            rel_err(stretch(u, s), stretch(pu, ps))]
+    flips = int(((s < 0) != (ps < 0)).any(dim=1).sum())
+    return max(e[0] for e in errs), max(e[1] for e in errs), flips
+
+
+def arap_step_flops(k):
+    """f64 operations per element of K8b at commit order k + bias k+1:
+    the convolutions each pass needs (i < m/2 pairs of two 3x3 products
+    mirrored, the middle term, m-1 products for Bpw) plus nine 3x3
+    products and the element-wise terms of the rule."""
+    def conv(m):
+        half = (m - 1) // 2
+        mid = 1 if m % 2 == 0 and m >= 2 else 0
+        return 2 * 45 * (half + mid) + 2 * 9 * half + 45 * (m - 1) + 9
+    fixed = 9 * 45 + 60
+    return conv(k) + conv(k + 1) + 2 * fixed + 45
+
+
+def phase_arap_kernels(torch, timing, verts_eq):
+    """K8a-c against their plain versions on the ARAP cell's state:
+    ``verts_eq`` are the vertices of the ARAP equilibrium."""
+    from sanm_tpu_torch.ops import arap_series as K8b
+    from sanm_tpu_torch.ops import svd_w as K8a
+    from sanm_tpu_torch.solver import assemble as K23
+
+    t0 = time.perf_counter()
+    model, f_load = armadillo_model(ARAP_CONFIGS)
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    rows = {}
+    report = reporter(rows)
+
+    # ---- K8a at the equilibrium, and on its mirror image (det < 0 in
+    # every element, so that every element flips) ----
+    x_eq = model.lt_inp.copy_vtx_values(verts_eq)
+    gin = K23.remap_in(asm, asm.pad_vector(x_eq))
+    F = elems.deformation_gradient(gin).contiguous()
+    mirror = F.clone()
+    mirror[:, 0, :] *= -1
+    err, rel, flips = svd_w_check(torch, F)
+    err_m, rel_m, flips_m = svd_w_check(torch, mirror)
+    say("K8a flip choice: %d of %d elements differ at the equilibrium, %d "
+        "on its mirror image (rel err %.2e there, tol %.0e)"
+        % (flips, B, flips_m, rel_m, MIRROR_TOL))
+    require(flips == 0 and flips_m == 0, "K8a's flip choice differs from "
+            "its plain version's")
+    require(rel_m <= MIRROR_TOL, "K8a disagrees with its plain version on "
+            "the mirror image: rel err %.3g" % rel_m)
+
+    def library_svd_w():
+        U, S, Vh = torch.linalg.svd(F)
+        return U @ Vh
+
+    report("svd_w", err, rel,
+           timing.kernel_ms(lambda: K8a.svd_w(F)),
+           timing.ms(lambda: K8a.svd_w_plain(F), reps=3),
+           bound_ms(8 * B * (9 + 9 + 3 + 9), B * (36 * 66 + 150)),
+           timing.ms(library_svd_w, reps=3),
+           "(library: torch.linalg.svd + U Vh, without the flip)")
+
+    # ---- K8c at the equilibrium ----
+    u, s, w = K8a.svd_w(F)
+    data, E = K23.jac_asm_arap(asm, elems, u, s, w)
+    data_p, E_p = K23.jac_asm_arap_plain(asm, elems, u, s, w)
+    e_d, r_d = rel_err(data, data_p)
+    e_e, r_e = rel_err(E, E_p)
+    del data_p, E_p
+    flops = B * (81 * 70 + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
+    report("jac_asm_arap", max(e_d, e_e), max(r_d, r_e),
+           timing.kernel_ms(lambda: K23.jac_asm_arap(asm, elems, u, s, w),
+                            reps=5),
+           timing.ms(lambda: K23.jac_asm_arap_plain(asm, elems, u, s, w),
+                     reps=2, warmup=1),
+           bound_ms(nbytes(u, s, w, elems.dminv, asm.Lout, asm.Lin,
+                           asm.nz_ptr, asm.nz_slot, E, data), flops))
+    del data, E
+
+    # ---- K8b along two real restarts: the first from the rest shape
+    # (timed and reported; there F0 = I, so s0 = (1, 1, 1)) and one from
+    # the ARAP equilibrium back to no load (a separated spectrum s0, so
+    # that the s-dependent terms are held too; the worse error is
+    # reported).  At order k it must read the 24 components of orders
+    # 1..k-1, row 0's W0, the constants row's 21, gin and Dm^-1, and
+    # write order k and the bias ----
+    def k8b_row(label, f, x0):
+        return series_row(
+            timing, label, model, f, K8b.ARAPSeries(elems, 20),
+            K8b.arap_step, K8b.arap_step_plain, K8b.GROUPS, lambda h, k: h,
+            lambda k: bound_ms(8 * B * (24 * (k - 1) + 9 + 21 + 18 + 24 + 9),
+                               B * arap_step_flops(k)), x0=x0)
+
+    err_k, worst, ms_k, plain_k, bnd_k = k8b_row("K8b", f_load, None)
+    s_eq = K8a.svd_w(F)[1].abs()
+    say("K8b from the ARAP equilibrium: s0 spread max |s0 - 1| = %.3e"
+        % float((s_eq - 1).abs().max()))
+    require(float((s_eq - 1).abs().max()) >= 1e-3,
+            "the ARAP equilibrium is not deformed")
+    err_eq, worst_eq = k8b_row("K8b (eq)", 0 * f_load, x_eq)[:2]
+    report("arap_step", max(err_k, err_eq), max(worst, worst_eq), ms_k,
+           plain_k, (bnd_k, "bytes"),
+           extra="(times: mean over the 19 per-order launches of the "
+                 "restart from the rest shape; error: the worse of that "
+                 "restart and the one from the ARAP equilibrium)")
+    torch.cuda.empty_cache()
+    phase_done("arap kernels", t0)
+    return rows
+
+
 def main(argv):
     out_dir = None
     if len(argv) == 2 and argv[0] == "--out":
@@ -789,22 +1043,29 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     build_s = phase_build()
     _, stat_lu, verts_lu = phase_slice(torch)
+    verts_rest = rest_vertices()
     launches, stat, verts_eq, band_solver = phase_band(
-        torch, verts_lu, rest_vertices())
+        torch, verts_lu, verts_rest)
+    torch.cuda.empty_cache()
+    launches_arap, stats_arap, verts_arap = phase_arap(torch, verts_rest)
     torch.cuda.empty_cache()
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
+    rows.update(phase_arap_kernels(torch, timing, verts_arap))
     del timing
     torch.cuda.empty_cache()
     phase_parity()
     phase_profile(torch, band_solver)
     del band_solver
     kern = []
-    for name in KERNELS:
+    for name in KERNELS + ARAP_KERNELS:
         r = rows[name]
+        # launches on the path auto takes on the card: the NHC band phase
+        # for K1-K5, the ARAP band phase for K8a-c
+        runs = launches_arap if name in ARAP_KERNELS else launches
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name], launches=runs[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -814,7 +1075,8 @@ def main(argv):
         with open(os.path.join(out_dir, "chip_smoke.log"), "w") as f:
             f.write("\n".join(_LOG) + "\n")
         with open(os.path.join(out_dir, "chip_smoke_stat.json"), "w") as f:
-            json.dump({"band_chol": stat, "host_lu": stat_lu}, f, indent=1)
+            json.dump({"band_chol": stat, "host_lu": stat_lu,
+                       "arap": stats_arap}, f, indent=1)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .ops.nhc_series import NHCElements
+from .ops.elements import Elements
 from .solver.assemble import DeviceAssembler
 
 
@@ -26,7 +26,7 @@ class SliceState:
     fixed_mask: np.ndarray  # (V, 3) host bool
     x0: torch.Tensor  # (n,)
     f_load_sub: torch.Tensor  # (n,)
-    elems: NHCElements
+    elems: Elements
     asm: DeviceAssembler
 
 
@@ -37,7 +37,8 @@ def state_from_numpy(*, vertices, tets, fixed_mask, dm_inv, bias, x0,
     the fixed mask, ``dm_inv`` (T, 3, 3), the shape-matrix ``bias``
     (T, 3, 3), ``x0`` and ``f_load_sub`` (n,), and the assembler plan
     (``Lin``, ``Lout``, ``loc_rows``, ``loc_cols``, ``slot_pos``,
-    ``csr_rowidx``, ``csr_cols``) with the Lame parameters."""
+    ``csr_rowidx``, ``csr_cols``) with the Lame parameters (both
+    materials' kernels read the same per-element constants)."""
     dev = resolve_device(device)
     T = np.asarray(tets).shape[0]
     n = np.asarray(x0).size
@@ -45,9 +46,9 @@ def state_from_numpy(*, vertices, tets, fixed_mask, dm_inv, bias, x0,
     def f64(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(dev)
 
-    elems = NHCElements(dminv=f64(np.reshape(dm_inv, (T, 9))),
-                        bias=f64(np.reshape(bias, (T, 9))),
-                        mu=float(mu), lam=float(lam))
+    elems = Elements(dminv=f64(np.reshape(dm_inv, (T, 9))),
+                     bias=f64(np.reshape(bias, (T, 9))),
+                     mu=float(mu), lam=float(lam))
     asm = DeviceAssembler(Lin, Lout, loc_rows, loc_cols, slot_pos,
                           csr_rowidx, csr_cols, n_rows=n, n=n, device=dev)
     return SliceState(

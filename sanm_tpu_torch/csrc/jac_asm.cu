@@ -1,4 +1,5 @@
-// K3: element Jacobian of the NHC stress and the condensed CSR assembly.
+// K3 and K8c: element Jacobian of the stress and the condensed CSR
+// assembly, for the NHC (K3) and the ARAP (K8c) material.
 //
 // Replaces jac_asm of sanm_tpu/solver/anm.py _hybrid_fns (:278-291):
 // batched_jacobian (sanm_tpu/taylor.py:611, forward-mode 9x9 Jacobian of
@@ -11,16 +12,25 @@
 // ~3 M CSR values (~25 MB): ~200 MB, about 60 us at 3.35 TB/s, against
 // ~0.25 GFLOP of f64 work (~7 us at 34 TFLOP/s without tensor cores).
 //
-// Design: the Jacobian is closed form, not forward-mode:
-//   P = mu F - mu F^-T + lam log(J) F^-T,  G = F^-1,
-//   dP_ij/dF_ml = mu d_im d_jl + (mu - lam log J) G_jm G_li + lam G_ji G_lm,
-// chained through F = (g + bias) Dm^-1.  One warp per element: each lane
-// rebuilds F and G (a few dozen flops), then the warp fills the 9x9
-// Jacobian, the Dout x 9 product Lout J and the Dout x Din E through
-// shared memory.  The scatter-add into CSR is inverted on the host
-// (nnz -> its slots, ascending), so a second kernel sums each value in a
-// fixed order without atomics: the assembled matrix has the same bits on
-// every run.
+// Design: the Jacobian is closed form, not forward-mode, and is the one
+// part that depends on the material: the device function Jac::fill,
+// chosen by the template parameter of elem_stiffness_kernel, with which
+// every lane of the warp rebuilds the element's factors from its inputs
+// and writes its share of the 81 entries.
+//   NHC:  P = mu F - mu F^-T + lam log(J) F^-T,  G = F^-1,
+//         dP_ij/dF_ml = mu d_im d_jl + (mu - lam log J) G_jm G_li
+//                       + lam G_ji G_lm,
+//         chained through F = (g + bias) Dm^-1.
+//   ARAP: P = mu (F - W), W = polar_w(F), from K8a's U, s, W of F (the
+//         JVP of sanm_tpu/ops/svd_w.py:173): for dg = e_m e_n^T,
+//         dF = e_m Dm^-1[n, :], A = U^T dF V = U[m, :]^T (Dm^-1 V)[n, :],
+//         X = clip_div(A - A^T, s_p + s_q), dW = (U X) V^T, V = W^T U,
+//         dP = mu (dF - dW).
+// One warp per element: the warp fills the 9x9 Jacobian, the Dout x 9
+// product Lout J and the Dout x Din E through shared memory.  The
+// scatter-add into CSR is inverted on the host (nnz -> its slots,
+// ascending), so a second kernel sums each value in a fixed order without
+// atomics: the assembled matrix has the same bits on every run.
 #include <cuda_runtime.h>
 
 #include "sanm_kernels.h"
@@ -31,62 +41,127 @@ constexpr int kWarps = 4;    // elements per block
 constexpr int kMaxD = 16;    // max Dout and Din taken (tets: 12)
 constexpr int kThreads = 256;
 
-__global__ void elem_stiffness_kernel(
-    const double* __restrict__ gin0, const double* __restrict__ bias,
-    const double* __restrict__ dminv, const double* __restrict__ Lout,
-    const double* __restrict__ Lin, double* __restrict__ E, int64_t B,
-    int Dout, int Din, double mu, double lam) {
+constexpr double kClipEps = 1e-12;  // ops/svd_w.py CLIP_EPS
+
+// The NHC Jacobian in g at F = (g0 + bias) Dm^-1:
+// Jg[(i,j), (m,n)] = sum_l dP_ij/dF_ml Dm^-1_nl, written to sJ (81) by
+// the lanes of one warp.
+struct NHCJacobian {
+    struct Params {
+        const double *gin0, *bias, *dminv;
+        double mu, lam;
+    };
+
+    static __device__ void fill(const Params& prm, int64_t b, int lane,
+                                double* sJ) {
+        double M[9], F[9], G[9], H[9];
+        for (int i = 0; i < 9; ++i) M[i] = prm.dminv[b * 9 + i];
+        for (int i = 0; i < 3; ++i) {
+            double ds[3];
+            for (int l = 0; l < 3; ++l)
+                ds[l] = prm.gin0[b * 9 + i * 3 + l] + prm.bias[b * 9 + i * 3 + l];
+            for (int j = 0; j < 3; ++j) {
+                double acc = 0.0;
+                for (int l = 0; l < 3; ++l) acc += ds[l] * M[l * 3 + j];
+                F[i * 3 + j] = acc;
+            }
+        }
+        // cofactor C, J = det F, G = F^-1 = C^T / J
+        double C[9];
+        for (int i = 0; i < 3; ++i) {
+            const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
+            for (int j = 0; j < 3; ++j) {
+                const int k0 = j == 0 ? 1 : 0, k1 = j == 2 ? 1 : 2;
+                double mnr = F[r0 * 3 + k0] * F[r1 * 3 + k1] -
+                             F[r0 * 3 + k1] * F[r1 * 3 + k0];
+                C[i * 3 + j] = ((i + j) & 1) ? -mnr : mnr;
+            }
+        }
+        const double J = F[0] * C[0] + F[1] * C[1] + F[2] * C[2];
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j) G[i * 3 + j] = C[j * 3 + i] / J;
+        // H = Dm^-1 G
+        for (int n = 0; n < 3; ++n)
+            for (int i = 0; i < 3; ++i) {
+                double acc = 0.0;
+                for (int l = 0; l < 3; ++l) acc += M[n * 3 + l] * G[l * 3 + i];
+                H[n * 3 + i] = acc;
+            }
+        const double c1 = prm.mu - prm.lam * log(J);
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
+            double v = c1 * G[j * 3 + m] * H[n * 3 + i] +
+                       prm.lam * G[j * 3 + i] * H[n * 3 + m];
+            if (i == m) v += prm.mu * M[n * 3 + j];
+            sJ[idx] = v;
+        }
+    }
+};
+
+// The ARAP Jacobian in g from the SVD-W (U, s, W) of F, written to sJ
+// (81) by the lanes of one warp.
+struct ARAPJacobian {
+    struct Params {
+        const double *u, *s, *w, *dminv;
+        double mu;
+    };
+
+    static __device__ void fill(const Params& prm, int64_t b, int lane,
+                                double* sJ) {
+        double M[9], U[9], W[9], V[9], Hv[9], sp[9];
+        for (int i = 0; i < 9; ++i) {
+            M[i] = prm.dminv[b * 9 + i];
+            U[i] = prm.u[b * 9 + i];
+            W[i] = prm.w[b * 9 + i];
+        }
+        for (int i = 0; i < 3; ++i)  // V = W^T U
+            for (int j = 0; j < 3; ++j)
+                V[i * 3 + j] = W[i] * U[j] + W[3 + i] * U[3 + j] +
+                               W[6 + i] * U[6 + j];
+        for (int i = 0; i < 3; ++i)  // Hv = Dm^-1 V
+            for (int j = 0; j < 3; ++j)
+                Hv[i * 3 + j] = M[i * 3] * V[j] + M[i * 3 + 1] * V[3 + j] +
+                                M[i * 3 + 2] * V[6 + j];
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j)
+                sp[i * 3 + j] = prm.s[b * 3 + i] + prm.s[b * 3 + j];
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
+            // X = clip_div(A - A^T, s_a + s_c), A_ac = U_ma Hv_nc
+            double X[9];
+            for (int a = 0; a < 3; ++a)
+                for (int c = 0; c < 3; ++c) {
+                    const double d = U[m * 3 + a] * Hv[n * 3 + c] -
+                                     U[m * 3 + c] * Hv[n * 3 + a];
+                    const double y = sp[a * 3 + c];
+                    X[a * 3 + c] = d * y / (y * y + kClipEps);
+                }
+            // dW_ij = sum_c (U X)_ic V_jc
+            double dw = 0.0;
+            for (int c = 0; c < 3; ++c)
+                dw += (U[i * 3] * X[c] + U[i * 3 + 1] * X[3 + c] +
+                       U[i * 3 + 2] * X[6 + c]) * V[j * 3 + c];
+            const double df = i == m ? M[n * 3 + j] : 0.0;
+            sJ[idx] = (df - dw) * prm.mu;
+        }
+    }
+};
+
+template <class Jac>
+__global__ void elem_stiffness_kernel(typename Jac::Params prm,
+                                      const double* __restrict__ Lout,
+                                      const double* __restrict__ Lin,
+                                      double* __restrict__ E, int64_t B,
+                                      int Dout, int Din) {
     __shared__ double sJ[kWarps][81];
     __shared__ double sT[kWarps][kMaxD * 9];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int64_t b = (int64_t)blockIdx.x * kWarps + warp;
     if (b >= B) return;  // whole warp leaves; only __syncwarp below
 
-    double M[9], F[9], G[9], H[9];
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) M[i * 3 + j] = dminv[b * 9 + i * 3 + j];
-    for (int i = 0; i < 3; ++i) {
-        double ds[3];
-        for (int l = 0; l < 3; ++l)
-            ds[l] = gin0[b * 9 + i * 3 + l] + bias[b * 9 + i * 3 + l];
-        for (int j = 0; j < 3; ++j) {
-            double acc = 0.0;
-            for (int l = 0; l < 3; ++l) acc += ds[l] * M[l * 3 + j];
-            F[i * 3 + j] = acc;
-        }
-    }
-    // cofactor C, J = det F, G = F^-1 = C^T / J
-    double C[9];
-    for (int i = 0; i < 3; ++i) {
-        const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
-        for (int j = 0; j < 3; ++j) {
-            const int c0 = j == 0 ? 1 : 0, c1 = j == 2 ? 1 : 2;
-            double mnr = F[r0 * 3 + c0] * F[r1 * 3 + c1] -
-                         F[r0 * 3 + c1] * F[r1 * 3 + c0];
-            C[i * 3 + j] = ((i + j) & 1) ? -mnr : mnr;
-        }
-    }
-    const double J = F[0] * C[0] + F[1] * C[1] + F[2] * C[2];
-    for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) G[i * 3 + j] = C[j * 3 + i] / J;
-    // H = Dm^-1 G
-    for (int n = 0; n < 3; ++n)
-        for (int i = 0; i < 3; ++i) {
-            double acc = 0.0;
-            for (int l = 0; l < 3; ++l) acc += M[n * 3 + l] * G[l * 3 + i];
-            H[n * 3 + i] = acc;
-        }
-    const double c1 = mu - lam * log(J);
-
-    // Jacobian in g: Jg[(i,j), (m,n)] = sum_l dP_ij/dF_ml Dm^-1_nl
-    for (int idx = lane; idx < 81; idx += 32) {
-        const int p = idx / 9, q = idx % 9;
-        const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
-        double v = c1 * G[j * 3 + m] * H[n * 3 + i] +
-                   lam * G[j * 3 + i] * H[n * 3 + m];
-        if (i == m) v += mu * M[n * 3 + j];
-        sJ[warp][idx] = v;
-    }
+    Jac::fill(prm, b, lane, sJ[warp]);
     __syncwarp();
     // T = Lout[b] Jg  (Dout x 9)
     const double* Lo = Lout + b * Dout * 9;
@@ -119,6 +194,24 @@ __global__ void csr_gather_kernel(const double* __restrict__ E,
     data[z] = acc;
 }
 
+template <class Jac>
+int jac_asm(const typename Jac::Params& prm, const double* Lout,
+            const double* Lin, const int32_t* nz_ptr, const int32_t* nz_slot,
+            double* E, double* data, int64_t B, int Dout, int Din,
+            int64_t nnz, cudaStream_t s) {
+    if (Dout > kMaxD || Din > kMaxD) return (int)cudaErrorInvalidValue;
+    if (B > 0)
+        elem_stiffness_kernel<Jac><<<(unsigned)((B + kWarps - 1) / kWarps),
+                                     kWarps * 32, 0, s>>>(prm, Lout, Lin, E, B,
+                                                          Dout, Din);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (nnz > 0)
+        csr_gather_kernel<<<(unsigned)((nnz + kThreads - 1) / kThreads),
+                            kThreads, 0, s>>>(E, nz_ptr, nz_slot, data, nnz);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sanm_jac_asm(const double* gin0, const double* bias,
@@ -127,16 +220,19 @@ extern "C" int sanm_jac_asm(const double* gin0, const double* bias,
                             const int32_t* nz_slot, double* E, double* data,
                             int64_t B, int Dout, int Din, int64_t nnz,
                             double mu, double lam, void* stream) {
-    if (Dout > kMaxD || Din > kMaxD) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (B > 0)
-        elem_stiffness_kernel<<<(unsigned)((B + kWarps - 1) / kWarps),
-                                kWarps * 32, 0, s>>>(
-            gin0, bias, dminv, Lout, Lin, E, B, Dout, Din, mu, lam);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (nnz > 0)
-        csr_gather_kernel<<<(unsigned)((nnz + kThreads - 1) / kThreads),
-                            kThreads, 0, s>>>(E, nz_ptr, nz_slot, data, nnz);
-    return (int)cudaGetLastError();
+    return jac_asm<NHCJacobian>({gin0, bias, dminv, mu, lam}, Lout, Lin,
+                                nz_ptr, nz_slot, E, data, B, Dout, Din, nnz,
+                                (cudaStream_t)stream);
+}
+
+extern "C" int sanm_jac_asm_arap(const double* u, const double* s,
+                                 const double* w, const double* dminv,
+                                 const double* Lout, const double* Lin,
+                                 const int32_t* nz_ptr,
+                                 const int32_t* nz_slot, double* E,
+                                 double* data, int64_t B, int Dout, int Din,
+                                 int64_t nnz, double mu, void* stream) {
+    return jac_asm<ARAPJacobian>({u, s, w, dminv, mu}, Lout, Lin, nz_ptr,
+                                 nz_slot, E, data, B, Dout, Din, nnz,
+                                 (cudaStream_t)stream);
 }

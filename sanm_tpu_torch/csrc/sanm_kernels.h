@@ -78,6 +78,28 @@ int sanm_band_solve(const double* panels, const int64_t* panel_off,
                     double* partial, double* out, int64_t n, int64_t nrow,
                     int64_t nb, void* stream);
 
+// K8a: per element the SVD-W of m (B, 3, 3): u (B, 3, 3), s (B, 3) sorted
+// descending, w = u v^T (B, 3, 3), m = u diag(s) u^T w, with the sign flip
+// of a group of singular values that makes det(w) = +1.
+int sanm_svd_w(const double* m, double* u, double* s, double* w, int64_t B,
+               void* stream);
+
+// K8b: commit order k (1 <= k <= order) of the ARAP polar-mode series
+// histories hist (order+2, 24, B) from the graph input g_k (B, 9), then,
+// when want_bias, write the order-(k+1) bias of P (B, 9) into bias_out.
+int sanm_arap_step(double* hist, const double* gin, const double* dminv,
+                   double* bias_out, int64_t B, int k, int order, double mu,
+                   int want_bias, void* stream);
+
+// K8c: per element the ARAP Jacobian of P in g (9x9) from K8a's u, s, w of
+// F, then E and the CSR values as sanm_jac_asm.
+int sanm_jac_asm_arap(const double* u, const double* s, const double* w,
+                      const double* dminv, const double* Lout,
+                      const double* Lin, const int32_t* nz_ptr,
+                      const int32_t* nz_slot, double* E, double* data,
+                      int64_t B, int Dout, int Din, int64_t nnz, double mu,
+                      void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Hyperelastic material models as batched torch expressions.
 
 Port of ``sanm_tpu/fea/material.py`` (reference ``fea/material.{h,cpp}``)
-for this slice: the energy-model names, the moduli, and ``pk1`` for the
-compressible Neo-Hookean model (NHC).  The other models' stresses
-belong to later slices of the port and raise.
+for the ported materials: the energy-model names, the moduli, ``pk1``
+for the compressible Neo-Hookean model (NHC) and for ARAP (whose SVD-W
+runs through K8a on the card), and the ARAP energy density.  The other
+models' stresses belong to later slices of the port and raise.
 
 Conventions: F deformation gradient (B, 3, 3), J = det(F),
 P first Piola-Kirchhoff stress.
@@ -17,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import batched_det, batched_inv, batched_transpose
+from ..ops.svd_w import polar_w
 from ..utils import SANMError
 
 
@@ -72,4 +74,17 @@ def pk1(energy_model: EnergyModel, material: MaterialProperty, F, dim: int):
         FTinv = batched_transpose(batched_inv(F))
         J = batched_det(F)[:, None, None]
         return mu * F - mu * FTinv + lam * torch.log(J) * FTinv
+    if energy_model == EnergyModel.ARAP:
+        return (F - polar_w(F)) * material.shear_modulus
     raise SANMError(f"pk1 for {energy_model} is not ported yet")
+
+
+def elastic_potential_density(energy_model: EnergyModel,
+                              material: MaterialProperty, F, dim: int):
+    """Per-element elastic energy density; None when the model does not
+    provide it (reference ``fea::elastic_potential_density``,
+    ``fea/material.cpp:101-115``, ARAP only)."""
+    if energy_model == EnergyModel.ARAP:
+        d = F - polar_w(F)
+        return torch.sum(d * d, dim=(-1, -2)) * (material.shear_modulus / 2.0)
+    return None

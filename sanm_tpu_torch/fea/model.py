@@ -6,7 +6,9 @@ the deformed free vertex coordinates; the graph maps remapped shape
 matrices Ds to the first Piola-Kirchhoff stress P(F) with
 F = (g + bias) Dm^-1; the output remap (rest-shape normals) turns P into
 nodal forces.  The model lives on one device: its remaps run through
-the K2 kernels (``solver/assemble.py``) and the stress in f64 torch.
+the K2 kernels (``solver/assemble.py``) and the stress in f64 torch
+(ARAP's SVD-W through K8a).  It hands the ANM driver its material's
+series (K1 for NHC, K8b for ARAP) and Jacobian assembly (K3, K8c).
 """
 
 from __future__ import annotations
@@ -17,20 +19,26 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.nhc_series import NHCElements
-from ..solver.assemble import DeviceAssembler
+from ..ops.arap_series import ARAPSeries
+from ..ops.elements import Elements
+from ..ops.nhc_series import NHCSeries
+from ..ops.svd_w import svd_w
+from ..solver.assemble import DeviceAssembler, jac_asm, jac_asm_arap
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
 from .material import EnergyModel, MaterialProperty, pk1
 from .mesh import TetrahedralMesh
 from .remap import ForceOutputRemap, ShapeMatRemap
 
+#: the energy models whose series and Jacobian kernels are ported
+PORTED = (EnergyModel.NEOHOOKEAN_C, EnergyModel.ARAP)
+
 
 @dataclass
 class ElasticForceModel:
     """Reference ``DeformableBody::ElasticForceModel``
     (``fea/mesh_template.h:153-159``), with its device state: the
-    assembler plan (``asm``) and the NHC per-element constants
+    assembler plan (``asm``) and the per-element constants
     (``elems``)."""
 
     energy_model: EnergyModel
@@ -38,7 +46,7 @@ class ElasticForceModel:
     lt_inp: ShapeMatRemap
     lt_out: ForceOutputRemap
     asm: DeviceAssembler
-    elems: NHCElements
+    elems: Elements
 
     @property
     def device(self):
@@ -49,10 +57,24 @@ class ElasticForceModel:
 
     def stress(self, gin):
         """P (B, 9) at graph input ``gin`` (B, 9)."""
-        B = self.elems.B
-        F = torch.bmm((gin + self.elems.bias).reshape(B, 3, 3),
-                      self.elems.dminv.reshape(B, 3, 3))
-        return pk1(self.energy_model, self.material, F, 3).reshape(B, 9)
+        F = self.elems.deformation_gradient(gin)
+        return pk1(self.energy_model, self.material, F, 3).reshape(-1, 9)
+
+    def series(self, order: int):
+        """The material's Taylor-series state for one expansion of
+        ``order``: :class:`NHCSeries` (K1) or :class:`ARAPSeries` (K8b)."""
+        if self.energy_model == EnergyModel.ARAP:
+            return ARAPSeries(self.elems, order)
+        return NHCSeries(self.elems, order)
+
+    def jac_asm(self, gin0):
+        """``(data, E)``: the CSR values and the condensed element
+        stiffness of the material's Jacobian at ``gin0`` (K3, or K8a +
+        K8c)."""
+        if self.energy_model == EnergyModel.ARAP:
+            u, s, w = svd_w(self.elems.deformation_gradient(gin0))
+            return jac_asm_arap(self.asm, self.elems, u, s, w)
+        return jac_asm(self.asm, self.elems, gin0)
 
     def eval_force(self, x):
         """Nodal force (n,) at unknown vector x, evaluated in f64 on the
@@ -74,9 +96,10 @@ class DeformableBody:
         """Forward model (reference ``make_forward``,
         ``fea/mesh_template.h:191-219``) on ``device`` (default: the
         card; see :func:`sanm_tpu_torch.resolve_device`)."""
-        if energy_model != EnergyModel.NEOHOOKEAN_C:
-            raise SANMError("energy model %s is not ported yet (this slice "
-                            "ports neohookean_c)" % energy_model.value)
+        if energy_model not in PORTED:
+            raise SANMError("energy model %s is not ported yet (ported: %s)"
+                            % (energy_model.value,
+                               ", ".join(m.value for m in PORTED)))
         dev = resolve_device(device)
         lt_inp = ShapeMatRemap(self.mesh, self.coord_fixed_mask)
         lt_out = ForceOutputRemap(lt_inp)
@@ -84,7 +107,7 @@ class DeformableBody:
         plan = SparseAssembler(lt_out.remap, lt_inp.remap, T, 9, 9,
                                lt_inp.n_unknown_vtx)
         dm_inv = np.linalg.inv(self.mesh.shape_matrix)
-        elems = NHCElements(
+        elems = Elements(
             dminv=torch.as_tensor(dm_inv.reshape(T, 9)).to(dev),
             bias=torch.as_tensor(lt_inp.bias.reshape(T, 9)).to(dev),
             mu=self.material.shear_modulus,

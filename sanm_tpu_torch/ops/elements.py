@@ -1,0 +1,39 @@
+"""Per-element constants of the stress graph of a forward model.
+
+Both ported materials evaluate P(F) per tetrahedron with
+``F = (g + bias) Dm^-1`` from the remapped graph input ``g``: NHC reads
+both Lame parameters, ARAP only mu.  :class:`Elements` holds what the
+per-element kernels (K1, K3, K8a-c) read besides their inputs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class Elements:
+    """Dm^-1 and the fixed-coordinate bias of Ds, both (B, 9) float64 on
+    one device, and the Lame parameters."""
+
+    dminv: torch.Tensor
+    bias: torch.Tensor
+    mu: float
+    lam: float
+
+    @property
+    def B(self):
+        return self.dminv.shape[0]
+
+    @property
+    def device(self):
+        return self.dminv.device
+
+    def deformation_gradient(self, gin):
+        """F = (g + bias) Dm^-1 (B, 3, 3) for the graph input ``gin``
+        (B, 9)."""
+        B = self.B
+        return torch.bmm((gin + self.bias).reshape(B, 3, 3),
+                         self.dminv.reshape(B, 3, 3))

@@ -17,12 +17,11 @@ torch ops, as the CPU path and the kernel's test oracle.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from .. import kernels
 from ..utils import SANMError
+from .elements import Elements
 
 NCOMP = 23
 _F, _C0, _Q, _J, _L = slice(0, 9), slice(9, 12), slice(12, 21), 21, 22
@@ -36,26 +35,6 @@ _M1A = [_R[i][0] * 3 + _R[j][0] for i in range(3) for j in range(3)]
 _M1B = [_R[i][1] * 3 + _R[j][1] for i in range(3) for j in range(3)]
 _M2A = [_R[i][0] * 3 + _R[j][1] for i in range(3) for j in range(3)]
 _M2B = [_R[i][1] * 3 + _R[j][0] for i in range(3) for j in range(3)]
-
-
-@dataclass
-class NHCElements:
-    """Per-element constants of the NHC graph on one device: Dm^-1 and
-    the fixed-coordinate bias of Ds, both (B, 9) float64, and the Lame
-    parameters."""
-
-    dminv: torch.Tensor
-    bias: torch.Tensor
-    mu: float
-    lam: float
-
-    @property
-    def B(self):
-        return self.dminv.shape[0]
-
-    @property
-    def device(self):
-        return self.dminv.device
 
 
 def _check_step(hist, k, gin, elems, out):
@@ -77,7 +56,7 @@ def _check_step(hist, k, gin, elems, out):
     return order, want_bias
 
 
-def nhc_step(hist, k: int, gin, elems: NHCElements, out=None):
+def nhc_step(hist, k: int, gin, elems: Elements, out=None):
     """Commit order k into ``hist`` from graph input ``gin`` (B, 9); when
     ``out`` (B, 9) is given, write the order-(k+1) bias of P into it.
     Launches the CUDA kernel for card tensors, runs
@@ -143,7 +122,7 @@ def _order_pass(hist, m, Fm, mu, lam, commit):
     return (mu * Fm - mu * Qm) + conv
 
 
-def nhc_step_plain(hist, k: int, gin, elems: NHCElements, out=None):
+def nhc_step_plain(hist, k: int, gin, elems: Elements, out=None):
     """Plain torch version of :func:`nhc_step` (same function, same
     arguments)."""
     _check_step(hist, k, gin, elems, out)
@@ -161,7 +140,7 @@ def nhc_step_plain(hist, k: int, gin, elems: NHCElements, out=None):
     return out
 
 
-def committed_output(hist, k: int, elems: NHCElements):
+def committed_output(hist, k: int, elems: Elements):
     """P_k (B, 9) of a committed order k, from the histories (plain torch;
     used to hold the port's commits against another engine's)."""
     Fk = hist[k, _F]
@@ -179,7 +158,7 @@ class NHCSeries:
     structurally zero); ``step(k, gin_k)`` commits order k and returns
     the order-(k+1) bias (B, 9)."""
 
-    def __init__(self, elems: NHCElements, order: int):
+    def __init__(self, elems: Elements, order: int):
         self.elems = elems
         self.order = int(order)
         dev = elems.device

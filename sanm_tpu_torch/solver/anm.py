@@ -10,8 +10,10 @@ normalization ``x_1 . x_1 + t_1^2 = 1`` and the per-order orthogonality
     A x_k + gt t_k + b_k = 0,      A = d(remap_out . f . remap_in)/dx
 
 with the same A for every k.  Per restart the card computes the element
-Jacobian and the CSR values (K3) and the order-0 series (K1).  Per order
-the card runs K2 remap_in, K1 (commit k + bias k+1) and K2 remap_out.
+Jacobian and the CSR values and the order-0 series; per order it runs K2
+remap_in, the material's series step (commit k + bias k+1) and K2
+remap_out.  The model supplies both material kernels (``model.jac_asm``,
+``model.series``): K3 and K1 for NHC, K8a + K8c and K8b for ARAP.
 
 * ``host_lu``: the host factorizes A once (SuperLU); b crosses to the
   host once per order (``bias_pull``), is back-substituted, and the host
@@ -28,7 +30,7 @@ the card runs K2 remap_in, K1 (commit k + bias k+1) and K2 remap_out.
 The continuation control (restarts, Pade, convergence) is host Python on
 the (N+1, n+1) coefficient matrix.
 
-The model here is the NHC forward model of
+The model here is the forward model of
 :class:`~sanm_tpu_torch.fea.model.ElasticForceModel`; its f(x0) is
 evaluated in f64 on the model's device.
 """
@@ -42,7 +44,6 @@ import numpy as np
 import torch
 
 from .. import polynomial
-from ..ops.nhc_series import NHCSeries
 from ..pade import PadeApproximation
 from ..utils import (
     SANMNumericalError,
@@ -50,12 +51,14 @@ from ..utils import (
     sanm_assert,
     verbose_mode,
 )
-from .assemble import element_matvec, jac_asm
+from .assemble import element_matvec
 from .band import BandPlan, DeviceBandCholSolver
 from .linear import HostSparseLU
 
 #: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``)
 SOLVERS = ("auto", "host_lu", "band_chol")
+#: the kinds of fallback from the band factor to host LU
+FALLBACKS = ("gate", "checks", "not_finite")
 #: factor-quality pre-gate: the first refined band solve's relative
 #: residual must reach this, or the solve falls back to host LU
 #: (``anm.py:712-740``)
@@ -104,7 +107,7 @@ class _ANMDriverBase:
         self.n = int(n_unknown)
         sanm_assert(self.asm.n == self.n and self.asm.n_rows == self.n)
         self.max_a_bound = polynomial.stable_x_range(self.hp.order)
-        self._series = NHCSeries(model.elems, self.hp.order)
+        self._series = model.series(self.hp.order)
         self._fact = None
         self._last_fact_reused = False
         # band_chol state: the host plan (topology-static), the auto
@@ -116,7 +119,9 @@ class _ANMDriverBase:
         self._band_auto = None
         self._solver_override = None
         self._last_mode = None
-        self.band_fallbacks = {"gate": 0, "checks": 0, "not_finite": 0}
+        # (restart, kind) of each fallback, kind one of FALLBACKS;
+        # restarts count over the solver's life, 1-based
+        self.band_fallback_log = []
         self.expansions = {"band_chol": 0, "host_lu": 0}
 
         self._iter = 0
@@ -142,7 +147,7 @@ class _ANMDriverBase:
 
     def _order_step(self, k, xt_k):
         """Commit order k and return the assembled order-(k+1) bias
-        (n,) on the device: K2 remap_in, K1, K2 remap_out."""
+        (n,) on the device: K2 remap_in, the series step, K2 remap_out."""
         gin = self.asm.apply_in(xt_k)
         return self.asm.apply_out(self._series.step(k, gin))
 
@@ -200,6 +205,19 @@ class _ANMDriverBase:
                 plan.mem_bytes() + plan.work_mem_bytes() <= free / 2)
         return self._band_auto
 
+    def _count_fallback(self, kind):
+        self.band_fallback_log.append((self._iter + 1, kind))
+
+    @property
+    def band_fallbacks(self):
+        """The band factor's fallbacks to host LU by kind: a missed
+        pre-gate, an expansion that failed its checks, a factor that is
+        not finite."""
+        out = dict.fromkeys(FALLBACKS, 0)
+        for _, kind in self.band_fallback_log:
+            out[kind] += 1
+        return out
+
     def band_plan(self) -> BandPlan:
         """The band solver's host plan, built once per solver (the
         sparsity is topology-static)."""
@@ -247,7 +265,7 @@ class _ANMDriverBase:
         with ScopedProfiler("build_sparse_coeff", block=True):
             gin0 = asm.apply_in(xt0_np[:n])
             if not reuse:
-                data, E = jac_asm(asm, self.model.elems, gin0)
+                data, E = self.model.jac_asm(gin0)
             self._series.start(gin0)
         if reuse:
             solver = fact["solver"]
@@ -257,7 +275,7 @@ class _ANMDriverBase:
                 solver = self._factorize(mode, data, E)
                 del data, E
             if solver is None:
-                self.band_fallbacks["not_finite"] += 1
+                self._count_fallback("not_finite")
                 if verbose_mode():
                     print("band_chol: indefinite stiffness; host-LU "
                           "fallback")
@@ -272,7 +290,7 @@ class _ANMDriverBase:
                 # the first refined solve doubles as the factor-quality
                 # pre-gate: host LU for the rest of this solve (cleared
                 # by reset); auto stops taking band_chol after two strikes
-                self.band_fallbacks["gate"] += 1
+                self._count_fallback("gate")
                 self._solver_override = "host_lu"
                 self._fact = None
                 if verbose_mode():
@@ -341,7 +359,7 @@ class _ANMDriverBase:
                         print("band_chol expansion failed checks; host-LU "
                               "fallback")
                     self._solver_override = "host_lu"
-                    self.band_fallbacks["checks"] += 1
+                    self._count_fallback("checks")
                     self._fact = None
                     self._expand_and_check()
                 else:

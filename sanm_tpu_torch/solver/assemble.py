@@ -4,9 +4,12 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
 
 * K2 :func:`remap_in` / :func:`remap_out` replace ``apply_in`` /
   ``apply_out`` (``:308-339``), once per Taylor order;
-* K3 :func:`jac_asm` replaces ``jac_asm`` of
+* :func:`jac_asm` replaces ``jac_asm`` of
   ``sanm_tpu/solver/anm.py:278-291`` (``batched_jacobian`` +
-  ``assemble_csr_elem``), once per restart, specialised to the NHC stress;
+  ``assemble_csr_elem``), once per restart, with the material's
+  closed-form Jacobian: K3 for the NHC stress, K8c
+  (:func:`jac_asm_arap`) for ARAP, whose SVD-W of F runs through K8a
+  first;
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
   (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
   stiffness E, for the refinement and the sanity residual of the band
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.nhc_series import NHCElements
+from ..ops.elements import Elements
+from ..ops.svd_w import svd_w_jvp
 from ..utils import SANMError
 from .remap import inverse_maps
 
@@ -189,19 +193,28 @@ def element_matvec_plain(asm: DeviceAssembler, E, x):
 
 
 # ---------------------------------------------------------------------------
-# K3 Jacobian + CSR assembly
+# Jacobian + CSR assembly: K3 (NHC) and K8c (ARAP)
 # ---------------------------------------------------------------------------
 
 
-def jac_asm(asm: DeviceAssembler, elems: NHCElements, gin0):
-    """Per-element NHC Jacobian at graph input ``gin0`` (B, 9), condensed
-    stiffness E (B, Dout, Din) and the CSR values (nnz,) over
-    ``(asm.csr_rowidx, asm.csr_cols)``.  Returns ``(data, E)``."""
+def _check_3x3(asm):
     if (asm.idim, asm.odim) != (9, 9):
         raise SANMError("jac_asm takes 3x3 graph inputs and outputs")
+
+
+def _check_jac(asm, elems, gin0):
+    _check_3x3(asm)
     kernels.check(gin0, "gin0", (asm.B, 9), _f64)
     kernels.check(elems.dminv, "dminv", (asm.B, 9), _f64)
     kernels.check(elems.bias, "bias", (asm.B, 9), _f64)
+
+
+def jac_asm(asm: DeviceAssembler, elems: Elements, gin0):
+    """K3: per-element Jacobian of the NHC stress P(g) at graph input
+    ``gin0`` (B, 9), condensed stiffness E (B, Dout, Din) and the CSR
+    values (nnz,) over ``(asm.csr_rowidx, asm.csr_cols)``.  Returns
+    ``(data, E)``."""
+    _check_jac(asm, elems, gin0)
     if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
                            asm.nz_ptr):
         return jac_asm_plain(asm, elems, gin0)
@@ -217,7 +230,31 @@ def jac_asm(asm: DeviceAssembler, elems: NHCElements, gin0):
     return data, E
 
 
-def nhc_jacobian_plain(elems: NHCElements, gin0):
+def jac_asm_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
+    """K8c: the ARAP Jacobian of P(g) from the SVD-W ``(u, s, w)`` of F at
+    the expansion point (K8a's results: (B, 3, 3), (B, 3), (B, 3, 3)),
+    then E and the CSR values as :func:`jac_asm`.  Launches the kernel
+    for card tensors, runs :func:`jac_asm_arap_plain` for CPU tensors."""
+    _check_3x3(asm)
+    B = asm.B
+    kernels.check(u, "u", (B, 3, 3), _f64)
+    kernels.check(s, "s", (B, 3), _f64)
+    kernels.check(w, "w", (B, 3, 3), _f64)
+    kernels.check(elems.dminv, "dminv", (B, 9), _f64)
+    if not kernels.on_card(u, s, w, elems.dminv, asm.Lin, asm.nz_ptr):
+        return jac_asm_arap_plain(asm, elems, u, s, w)
+    E = torch.empty((B, asm.Dout, asm.Din), dtype=_f64, device=u.device)
+    data = torch.empty((asm.nnz,), dtype=_f64, device=u.device)
+    kernels.launch("jac_asm_arap", "sanm_jac_asm_arap", u.data_ptr(),
+                   s.data_ptr(), w.data_ptr(), elems.dminv.data_ptr(),
+                   asm.Lout.data_ptr(), asm.Lin.data_ptr(),
+                   asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
+                   E.data_ptr(), data.data_ptr(), B, asm.Dout, asm.Din,
+                   asm.nnz, float(elems.mu))
+    return data, E
+
+
+def nhc_jacobian_plain(elems: Elements, gin0):
     """(B, 9, 9) Jacobian of P(g) at ``gin0``: closed-form dP/dF of the
     NHC stress chained through F = (g + bias) Dm^-1 (see
     ``csrc/jac_asm.cu``)."""
@@ -225,7 +262,7 @@ def nhc_jacobian_plain(elems: NHCElements, gin0):
 
     B = elems.B
     M = elems.dminv.reshape(B, 3, 3)
-    F = torch.bmm((gin0 + elems.bias).reshape(B, 3, 3), M)
+    F = elems.deformation_gradient(gin0)
     G = batched_inv(F)
     H = torch.bmm(M, G)  # H[n, i] = sum_l M[n, l] G[l, i]
     c1 = elems.mu - elems.lam * torch.log(batched_det(F))
@@ -243,9 +280,35 @@ def nhc_jacobian_plain(elems: NHCElements, gin0):
     return J4.reshape(B, 9, 9)
 
 
-def jac_asm_plain(asm: DeviceAssembler, elems: NHCElements, gin0):
-    J = nhc_jacobian_plain(elems, gin0)
+def arap_jacobian_plain(elems: Elements, u, s, w):
+    """(B, 9, 9) Jacobian of P(g) = mu (F - W(F)) from the SVD-W of F:
+    per basis direction (m, n) of g, dF = e_m Dm^-1[n, :] and
+    dP = mu (dF - dW) with dW from :func:`svd_w_jvp`."""
+    B = elems.B
+    M = elems.dminv.reshape(B, 3, 3)
+    J = torch.empty((B, 9, 9), dtype=_f64, device=u.device)
+    for q in range(9):
+        m, n = divmod(q, 3)
+        dF = torch.zeros((B, 3, 3), dtype=_f64, device=u.device)
+        dF[:, m, :] = M[:, n, :]
+        dw = svd_w_jvp(u, s, w, dF)[2]
+        J[:, :, q] = ((dF - dw) * elems.mu).reshape(B, 9)
+    return J
+
+
+def _assemble_plain(asm: DeviceAssembler, J):
+    """E = Lout J Lin and the CSR values, scatter-added (plain torch)."""
     E = torch.einsum("bdp,bpq,bqe->bde", asm.Lout, J, asm.Lin).contiguous()
-    acc = torch.zeros(asm.nnz + 1, dtype=_f64, device=gin0.device)
+    acc = torch.zeros(asm.nnz + 1, dtype=_f64, device=J.device)
     acc.index_add_(0, asm.slot_pos.long(), E.reshape(-1))
     return acc[: asm.nnz].contiguous(), E
+
+
+def jac_asm_plain(asm: DeviceAssembler, elems: Elements, gin0):
+    """Plain torch version of K3 (NHC)."""
+    return _assemble_plain(asm, nhc_jacobian_plain(elems, gin0))
+
+
+def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
+    """Plain torch version of K8c (:func:`jac_asm_arap`)."""
+    return _assemble_plain(asm, arap_jacobian_plain(elems, u, s, w))

@@ -174,3 +174,112 @@ def test_element_matvec(models):
     assert rel(got, want) <= BAND_TOL["element_matvec"]
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["element_matvec"] == n0 + 1
+
+
+# K8a-c (ARAP) against their plain versions.  Tolerances (relative to the
+# largest magnitude): svd_w 1e-12 on s, W and the stretch U diag(s) U^T
+# (U alone is not unique where singular values nearly tie), with no
+# element whose flip choice differs, and 1e-10 where elements flip (a
+# single flipped member of a pair closer than GROUP_EPS makes W depend on
+# that pair's columns of U, fixed only to about 1e-16 / their gap);
+# arap_step 1e-11 per order (f64 sums in another order, with fused
+# multiply-adds, through 19 orders of recurrences); jac_asm_arap 1e-12.
+ARAP_TOL = {"svd_w": 1e-12, "svd_w_flipped": 1e-10, "arap_step": 1e-11,
+            "jac_asm_arap": 1e-12}
+
+
+@pytest.fixture
+def arap_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = TetrahedralMesh.make_cuboid(6, 4, 4, 0.025)
+        body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                              mesh)
+        body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.0125, :] = True
+        out[dev] = body.make_forward(EnergyModel.ARAP, device=dev)
+    return out
+
+
+def svd_w_errors(m_cuda):
+    """Kernel vs plain svd_w on the same card tensor: the largest
+    relative error of s, W and U diag(s) U^T, and the number of elements
+    whose flip choice (the signs of s) differs."""
+    from sanm_tpu_torch.ops import svd_w as K8a
+
+    u, s, w = K8a.svd_w(m_cuda)
+    pu, ps, pw = K8a.svd_w_plain(m_cuda)
+
+    def stretch(u, s):
+        return (u * s.abs()[:, None, :]) @ u.transpose(1, 2)
+
+    err = max(rel(s, ps), rel(w, pw), rel(stretch(u, s), stretch(pu, ps)))
+    flips = int(((s < 0) != (ps < 0)).any(dim=1).sum())
+    return err, flips
+
+
+def test_svd_w(arap_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops import svd_w as K8a
+    from sanm_tpu_torch.utils import SANMError
+
+    g = arap_models["cuda"]
+    x = g.x0() + np.random.default_rng(8).uniform(-2e-3, 2e-3, g.asm.n)
+    F = g.elems.deformation_gradient(g.asm.apply_in(x))
+    n0 = kernels.LAUNCHES["svd_w"]
+    refl = F.clone()
+    refl[:, 0, :] *= -1  # det < 0: every element needs its flip
+    rng = np.random.default_rng(9)
+    rand = torch.as_tensor(rng.standard_normal((4096, 3, 3))).cuda()
+    for m in (F, refl, rand):
+        err, flips = svd_w_errors(m.contiguous())
+        tol = ARAP_TOL["svd_w" if m is F else "svd_w_flipped"]
+        assert err <= tol and flips == 0
+    with pytest.raises(SANMError):  # the kernel always flips
+        K8a.svd_w(F, False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["svd_w"] == n0 + 3
+
+
+def test_arap_series(arap_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops.arap_series import ARAPSeries
+
+    g, c = arap_models["cuda"], arap_models["cpu"]
+    rng = np.random.default_rng(10)
+    x0 = g.x0() + rng.uniform(-1e-3, 1e-3, g.asm.n)
+    sg = ARAPSeries(g.elems, 20)
+    sc = ARAPSeries(c.elems, 20)
+    sg.start(g.asm.apply_in(x0))
+    sc.start(c.asm.apply_in(x0))
+    n0 = kernels.LAUNCHES["arap_step"]
+    for k in range(1, 20):
+        xk = rng.standard_normal(g.asm.n) * 1e-3 * 0.5 ** k
+        bg = sg.step(k, g.asm.apply_in(xk))
+        bc = sc.step(k, c.asm.apply_in(xk))
+        assert rel(bg, bc) <= ARAP_TOL["arap_step"], k
+        assert rel(sg.hist[k], sc.hist[k]) <= ARAP_TOL["arap_step"], k
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["arap_step"] == n0 + 19
+
+
+def test_arap_jacobian(arap_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops.svd_w import svd_w
+    from sanm_tpu_torch.solver import assemble as K
+
+    g = arap_models["cuda"]
+    x = g.x0() + np.random.default_rng(11).uniform(-2e-3, 2e-3, g.asm.n)
+    F = g.elems.deformation_gradient(g.asm.apply_in(x))
+    u, s, w = svd_w(F)
+    n0 = kernels.LAUNCHES["jac_asm_arap"]
+    data, E = K.jac_asm_arap(g.asm, g.elems, u, s, w)
+    data_p, E_p = K.jac_asm_arap_plain(g.asm, g.elems, u, s, w)
+    assert rel(E, E_p) <= ARAP_TOL["jac_asm_arap"]
+    assert rel(data, data_p) <= ARAP_TOL["jac_asm_arap"]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["jac_asm_arap"] == n0 + 1

@@ -207,3 +207,97 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_arap_wrappers_do_not_fall_back():
+    """K8a svd_w, K8b arap_step and K8c jac_asm_arap raise on a meta
+    tensor, a wrong dtype, shape or order range, and a non-contiguous
+    tensor; on CPU tensors they run their plain versions and count no
+    launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.ops.arap_series import ARAPSeries, arap_step
+    from sanm_tpu_torch.ops.svd_w import svd_w
+    from sanm_tpu_torch.solver import assemble
+
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          TetrahedralMesh.make_cuboid(3, 2, 2, 0.1))
+    model = body.make_forward(EnergyModel.ARAP, device="cpu")
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    before = dict(kernels.LAUNCHES)
+    F = torch.eye(3, dtype=torch.float64).repeat(B, 1, 1)
+    with pytest.raises(SANMError):
+        svd_w(F.to("meta"))
+    with pytest.raises(SANMError):  # wrong dtype
+        svd_w(F.float())
+    with pytest.raises(SANMError):  # wrong shape
+        svd_w(F[:, :2])
+    with pytest.raises(SANMError):  # not contiguous
+        svd_w(F.transpose(1, 2))
+    u, s, w = svd_w(F, True)
+    with pytest.raises(SANMError):
+        assemble.jac_asm_arap(asm, elems, u.to("meta"), s.to("meta"),
+                              w.to("meta"))
+    with pytest.raises(SANMError):
+        assemble.jac_asm_arap(asm, elems, u, s.float(), w)
+    with pytest.raises(SANMError):
+        assemble.jac_asm_arap(asm, elems, u, s[:, :2], w)
+    with pytest.raises(SANMError):
+        assemble.jac_asm_arap(asm, elems, u.transpose(1, 2), s, w)
+    series = ARAPSeries(elems, 4)
+    series.start(asm.apply_in(model.x0()))
+    g = torch.zeros(B, 9, dtype=torch.float64)
+    with pytest.raises(SANMError):
+        arap_step(series.hist.to("meta"), 1, g.to("meta"), elems)
+    with pytest.raises(SANMError):
+        arap_step(series.hist, 1, g.float(), elems)
+    with pytest.raises(SANMError):
+        arap_step(series.hist[:, :20], 1, g, elems)
+    with pytest.raises(SANMError):
+        arap_step(series.hist, 1, torch.zeros(9, B, dtype=torch.float64).T,
+                  elems)
+    with pytest.raises(SANMError):  # order 0 is committed by start
+        arap_step(series.hist, 0, g, elems)
+    with pytest.raises(SANMError):  # no order 5 for the bias of order 4
+        series.step(4, g)
+    series.step(1, g)
+    assemble.jac_asm_arap(asm, elems, u, s, w)
+    assert kernels.LAUNCHES == before
+
+
+def _c_entry_points(text, extern_only):
+    """``{name: number of parameters}`` of the ``int sanm_*(...)``
+    functions declared or defined in C source ``text``."""
+    import re
+
+    text = re.sub(r"//[^\n]*", "", text)
+    pre = r'extern\s+"C"\s+' if extern_only else r"(?<![\w\"])"
+    out = {}
+    for m in re.finditer(pre + r"int\s+(sanm_\w+)\s*\(([^)]*)\)", text):
+        out[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    return out
+
+
+def test_c_interface_matches_ctypes_signatures():
+    """Every kernel entry point that ``kernels.py`` binds is declared in
+    ``csrc/sanm_kernels.h`` and defined in one ``csrc/*.cu`` with as many
+    parameters as its ctypes signature, so that a launch cannot pass a
+    stale argument list (nvcc, which would catch a mismatch with the
+    header, runs only on the card's machine)."""
+    from sanm_tpu_torch import kernels
+
+    csrc = os.path.join(PKG, "csrc")
+    header = _c_entry_points(
+        open(os.path.join(csrc, "sanm_kernels.h")).read(), False)
+    defined = {}
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            for name, n in _c_entry_points(
+                    open(os.path.join(csrc, f)).read(), True).items():
+                assert name not in defined, name
+                defined[name] = n
+    assert set(kernels._SIGNATURES) == set(header) == set(defined)
+    for name, args in kernels._SIGNATURES.items():
+        assert len(args) == header[name] == defined[name], name

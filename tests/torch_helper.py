@@ -1,6 +1,6 @@
 """Shared set-up of the parity tests between sanm_tpu (JAX) and
-sanm_tpu_torch: one small NHC cuboid model built by each package from the
-same NumPy inputs."""
+sanm_tpu_torch: one small cuboid model (NHC unless a test asks for another
+material) built by each package from the same NumPy inputs."""
 
 import numpy as np
 
@@ -23,8 +23,9 @@ def cuboid_load(mesh, nx, spacing, fz=-200.0):
     return f
 
 
-def jax_model(fz=-200.0):
-    """The JAX package's forward NHC model, its assembler plan and load."""
+def jax_model(fz=-200.0, energy_model=None):
+    """The JAX package's forward model (NHC unless ``energy_model`` names
+    another), its assembler plan and load."""
     from sanm_tpu.fea import (DeformableBody, EnergyModel, MaterialProperty,
                               TetrahedralMesh)
     from sanm_tpu.solver.remap import SparseAssembler
@@ -36,7 +37,7 @@ def jax_model(fz=-200.0):
         MaterialProperty.from_young_poisson(MATERIAL["E"], MATERIAL["nu"]),
         mesh)
     body.coord_fixed_mask[mesh.vertices[:, 0] <= c["spacing"] / 2, :] = True
-    model = body.make_forward(EnergyModel.NEOHOOKEAN_C)
+    model = body.make_forward(energy_model or EnergyModel.NEOHOOKEAN_C)
     T = mesh.nr_tet
     n = model.x0().size
     plan = SparseAssembler(model.lt_out.remap, model.lt_inp.remap, T, 9, 9,
