@@ -10,8 +10,8 @@ Phases, each timed:
    into the gitignored ``sanm_tpu_torch/_build/``;
 3. slice: ``gravity`` on ``configs/armadillo_small.json`` (NHC, order 20,
    Pade on) through the port's entry point with ``"solver": "host_lu"``
-   (host SuperLU), cold and warm, to force-RMS <= 1e-10; K1-K3 must
-   launch in that run;
+   (host SuperLU), cold, to force-RMS <= 1e-10; K1-K3 must launch in
+   that run;
 4. band: the same task with ``"solver": "band_chol"`` (the card's
    skyline band Cholesky, the path ``auto`` takes on the card), cold and
    warm: force-RMS <= 1e-10, no inverted element, no fallback to host
@@ -28,8 +28,9 @@ Phases, each timed:
    (``bound``);
 6. arap: ``gravity`` on armadillo-small with ``override_arap.json`` and
    ``override_stiff_material.json`` (ARAP, the reference protocol's
-   cell), cold and warm, with ``"solver": "host_lu"`` and with
-   ``"solver": "band_chol"``: force-RMS <= 1e-10, no inverted element,
+   cell), with ``"solver": "host_lu"`` (cold) and with
+   ``"solver": "band_chol"`` (cold and warm): force-RMS <= 1e-10, no
+   inverted element,
    K8a-c (svd_w, arap_step, jac_asm_arap) launched in each run, the two
    equilibria within ``BAND_COORD_RTOL``; a fallback of the band factor
    to host LU is counted and printed, and passes if the run converges;
@@ -38,12 +39,30 @@ Phases, each timed:
    2..20), each against its plain version, with K8a's flip choice
    compared element by element (also on the equilibrium's mirror image,
    where every element flips), timed as in 5;
-8. parity: NHC and ARAP equilibria of a small cuboid, order 20, solved
-   through the kernels and through the plain versions on the CPU, with
-   host LU and with the band solver: same iterations, coordinates within
-   ``PARITY_RTOL``;
-9. profile: one warm band_chol re-solve of armadillo-small (NHC) under
+8. nhi: ``gravity`` on ``configs/human.json`` as it is (NHI, 78,067
+   tets, order 20, Pade on) with ``"solver": "band_chol"``, cold and
+   warm, and with ``"solver": "host_lu"``, cold: force-RMS <= 1e-10, no
+   inverted element, the relative displacement within 1e-9 relative of
+   the JAX package's CPU value (``HUMAN_DISPLACEMENT``), the two
+   equilibria within ``BAND_COORD_RTOL``, K1n, K3n, K2, K4 and K5a-c
+   launched in the band run; a band fallback to host LU is counted and
+   printed, and passes if the run converges;
+9. nhi kernels: K3n (jac_asm_nhi) at the human equilibrium and K1n
+   (nhi_step) along a real first restart from the rest shape (bias
+   orders 2..20, solved with the card's band factor), each against its
+   plain version, timed as in 5;
+10. parity: NHC, NHI and ARAP equilibria of a small cuboid, order 20,
+   solved through the kernels and through the plain versions on the CPU,
+   with host LU and with the band solver: same iterations, coordinates
+   within ``PARITY_RTOL``;
+11. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
+
+``python3 chip_smoke.py --records [--out DIR]`` instead runs only the
+build and :func:`phase_records`: ``configs/jet.json`` (NHI, 47,668 tets)
+on ``band_chol`` and on ``host_lu``, cold (restarts, force-RMS, the
+solver that ran, band fallbacks, refinement trips per solve), and the
+band solve's residual after each refinement trip on three meshes.
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -54,6 +73,7 @@ solve go to a temporary directory; only ``--out`` writes a log there.
 """
 
 import faulthandler
+import gc
 import json
 import os
 import subprocess
@@ -67,6 +87,17 @@ CONFIG = os.path.join(ROOT, "configs", "armadillo_small.json")
 # the ARAP cell: armadillo-small with the ARAP and stiff-material overrides
 ARAP_CONFIGS = [CONFIG] + [os.path.join(ROOT, "configs", f) for f in (
     "override_arap.json", "override_stiff_material.json")]
+# the NHI cell: human as it is (NHI is its own energy model)
+HUMAN_CONFIGS = [os.path.join(ROOT, "configs", "human.json")]
+# the JAX package's relative displacement of that task on the CPU (f64,
+# host LU, 2 restarts, force-RMS 1.04e-13), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/human.json
+# (the stat JSON human-i0-neohookean_i.json); the card's must agree to
+# 1e-9 relative
+HUMAN_DISPLACEMENT = 0.008425376847673133
+HUMAN_CPU_RESTARTS = 2
+JET_CONFIGS = [os.path.join(ROOT, "configs", "jet.json")]
 # H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
 # TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -83,7 +114,8 @@ PEAK_F64_TC_S = 67e12
 TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "nhc_step": 1e-11, "element_matvec": 1e-12, "band_assemble": 1e-14,
        "band_factor": 1e-10, "band_solve": 1e-12, "svd_w": 1e-12,
-       "arap_step": 1e-11, "jac_asm_arap": 1e-12}
+       "arap_step": 1e-11, "jac_asm_arap": 1e-12, "nhi_step": 1e-11,
+       "jac_asm_nhi": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -98,6 +130,7 @@ BAND_COORD_RTOL = 1e-6
 KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
            "band_assemble", "band_factor", "band_solve")
 ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
+NHI_KERNELS = ("nhi_step", "jac_asm_nhi")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -110,6 +143,8 @@ REPLACES = {
     "svd_w": "sanm_tpu/ops/svd_w.py:60",
     "arap_step": "sanm_tpu/ops/svd_w.py:469",
     "jac_asm_arap": "sanm_tpu/ops/svd_w.py:173",
+    "nhi_step": "sanm_tpu/taylor_scan.py:543",
+    "jac_asm_nhi": "sanm_tpu/taylor.py:611",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -123,6 +158,8 @@ SOURCES = {
     "svd_w": "sanm_tpu_torch/csrc/svd_w.cu",
     "arap_step": "sanm_tpu_torch/csrc/arap_series.cu",
     "jac_asm_arap": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "nhi_step": "sanm_tpu_torch/csrc/nhi_series.cu",
+    "jac_asm_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -183,6 +220,7 @@ class Timing:
         torch.cuda.synchronize()
         self.cover_ms = s.elapsed_time(e)
         self.host_ms = 0.0
+        gc.collect()  # the large host objects of the solves before
 
     def ms(self, fn, reps=10, warmup=2, setup=None, cover_cycles=None):
         torch = self.torch
@@ -191,8 +229,18 @@ class Timing:
                 setup()
             fn()
         torch.cuda.synchronize()
-        total = 0.0
         self.host_ms = 0.0
+        # a garbage collection would land in a timed call's host work
+        gc.disable()
+        try:
+            total = self._timed(fn, reps, setup, cover_cycles)
+        finally:
+            gc.enable()
+        return total / reps
+
+    def _timed(self, fn, reps, setup, cover_cycles):
+        torch = self.torch
+        total = 0.0
         for _ in range(reps):
             if setup is not None:
                 setup()
@@ -208,7 +256,7 @@ class Timing:
                                (time.perf_counter() - h0) * 1e3)
             torch.cuda.synchronize()
             total += s.elapsed_time(e)
-        return total / reps
+        return total
 
     def kernel_ms(self, fn, reps=10, warmup=2):
         """Device time of a kernel wrapper; fails if its host work was not
@@ -379,27 +427,56 @@ def armadillo_model(configs=(CONFIG,)):
     return model, model.lt_inp.copy_vtx_values(f_full)
 
 
-def first_restart(model, f_load, series, step, order=20, x0=None):
-    """Drive a real ANM restart of ``model`` from ``x0`` (default: its
-    rest shape; f(x0) + y as the homotopy) through host LU:
-    ``series.start`` at x0, then for k = 1..order-1 ``step(k, gin_k)``
-    commits order k and returns the order-(k+1) bias (B, 9), from which
-    the host solve gives the next coefficient."""
-    import numpy as np
+def host_lu_factor(model):
+    """``factor(data, E) -> solve``: host SuperLU of the CSR values."""
     import scipy.sparse as sp
 
-    from sanm_tpu_torch.solver import assemble as K23
     from sanm_tpu_torch.solver.linear import host_splu
 
     asm = model.asm
-    n = asm.n
+
+    def factor(data, E):
+        A = sp.csr_matrix((data.cpu().numpy(), (asm.csr_rowidx,
+                                                asm.csr_cols)),
+                          shape=(asm.n, asm.n))
+        return host_splu(A.tocsc()).solve
+    return factor
+
+
+def band_chol_factor(model, plan):
+    """``factor(data, E) -> solve``: the card's refined band solve (K5a-c
+    refined against K4), for a mesh whose host LU is slow."""
+    from functools import partial
+
+    import torch
+
+    from sanm_tpu_torch.solver.assemble import element_matvec
+    from sanm_tpu_torch.solver.band import DeviceBandCholSolver
+
+    def factor(data, E):
+        s = DeviceBandCholSolver(plan, data,
+                                 partial(element_matvec, model.asm, E))
+        require(s.factor_ok(), "band factor of the restart not finite")
+        return lambda r: s.solve(torch.as_tensor(r).cuda()).cpu().numpy()
+    return factor
+
+
+def first_restart(model, f_load, series, step, order=20, x0=None,
+                  factor=None):
+    """Drive a real ANM restart of ``model`` from ``x0`` (default: its
+    rest shape; f(x0) + y as the homotopy) through ``factor`` (default:
+    :func:`host_lu_factor`): ``series.start`` at x0, then for k =
+    1..order-1 ``step(k, gin_k)`` commits order k and returns the
+    order-(k+1) bias (B, 9), from which the solve gives the next
+    coefficient."""
+    import numpy as np
+
+    from sanm_tpu_torch.solver import assemble as K23
+
+    asm = model.asm
     gin0 = K23.remap_in(asm, asm.pad_vector(model.x0() if x0 is None
                                             else x0))
-    data0, _ = model.jac_asm(gin0)
-    A = sp.csr_matrix((data0.cpu().numpy(), (asm.csr_rowidx, asm.csr_cols)),
-                      shape=(n, n))
-    del data0
-    solve = host_splu(A.tocsc()).solve
+    solve = (factor or host_lu_factor(model))(*model.jac_asm(gin0))
     xgt = solve(K23.remap_out(asm, model.stress(gin0)).cpu().numpy()
                 + f_load)
     t1 = 1.0 / np.sqrt(xgt @ xgt + 1.0)
@@ -416,7 +493,7 @@ def first_restart(model, f_load, series, step, order=20, x0=None):
 
 
 def series_row(timing, label, model, f_load, series, kernel, plain, groups,
-               rows, bound_of, on_bias=None, x0=None):
+               rows, bound_of, on_bias=None, x0=None, factor=None):
     """A series kernel against its plain version along
     :func:`first_restart` from ``x0`` (bias orders 2..20): per order k the
     plain step
@@ -460,7 +537,7 @@ def series_row(timing, label, model, f_load, series, kernel, plain, groups,
             on_bias(b)
         return b
 
-    first_restart(model, f_load, series, step, x0=x0)
+    first_restart(model, f_load, series, step, x0=x0, factor=factor)
     return (err_k, worst, float(np.mean(ms_k)), float(np.mean(plain_k)),
             float(np.mean(bnd_k)))
 
@@ -729,7 +806,7 @@ def phase_parity():
 
     t0 = time.perf_counter()
     threads = torch.get_num_threads()
-    for em in ("neohookean_c", "arap"):
+    for em in ("neohookean_c", "neohookean_i", "arap"):
         for solver in ("host_lu", "band_chol"):
             it_c, x_c, rms_c = cuboid_solve("cuda", solver, em)
             # the plain band factor is many small BLAS calls, which a pool
@@ -750,13 +827,21 @@ def phase_parity():
     phase_done("parity", t0)
 
 
+def mesh_vertex_count(cfg):
+    """The vertex count in the header of the task's tetgen .node file."""
+    path = os.path.join(os.path.dirname(CONFIG), cfg["mesh"] + ".node")
+    with open(path) as f:
+        return int(f.readline().split()[0])
+
+
 def run_gravity(torch, solver, configs=(CONFIG,), label=None,
-                allow_fallback=False):
-    """``app.gravity`` on armadillo-small (the task of the merged
-    ``configs``) with ``solver``, cold and one warm re-solve, with the
-    profiler on and the launch counts set to 0 just before; returns the
-    task result, the counts and the scope stats.  ``allow_fallback``
-    accepts a band solve that fell back to host LU (``mixed``)."""
+                allow_fallback=False, warm=True):
+    """``app.gravity`` on the task of the merged ``configs`` (default
+    armadillo-small) with ``solver``, cold and (``warm``) one warm
+    re-solve, with the profiler on and the launch counts set to 0 just
+    before; returns the task result, the counts and the scope stats.
+    ``allow_fallback`` accepts a band solve that fell back to host LU
+    (``mixed``)."""
     from sanm_tpu_torch import kernels
     import numpy as np
 
@@ -764,7 +849,10 @@ def run_gravity(torch, solver, configs=(CONFIG,), label=None,
     from sanm_tpu_torch.utils import ScopedProfiler
 
     label = label or solver
-    os.environ["SANM_WARM_TIMING"] = "1"
+    if warm:
+        os.environ["SANM_WARM_TIMING"] = "1"
+    else:
+        os.environ.pop("SANM_WARM_TIMING", None)
     ScopedProfiler.enabled = True
     ScopedProfiler.reset()
     cfg = dict(app.merge_configs(list(configs)), solver=solver)
@@ -790,11 +878,15 @@ def run_gravity(torch, solver, configs=(CONFIG,), label=None,
     say("%s: force_rms_recomp=%.3e (target %.0e) nr_inverted=%d "
         "displacement=%.4g" % (label, st["force_rms_recomp"], RMS_TARGET,
                                 st["nr_inverted"], st["displacement"]))
-    say("%s: time_solve cold=%.3f s warm=%.3f s time_prep=%.3f s"
-        % (label, st["time_solve"], st["time_solve_warm"], st["time_prep"]))
+    say("%s: time_solve cold=%.3f s warm=%s s time_prep=%.3f s"
+        % (label, st["time_solve"],
+           "%.3f" % st["time_solve_warm"] if warm else "not run",
+           st["time_prep"]))
     say("%s: launches %s" % (label, json.dumps(launches)))
+    nv = mesh_vertex_count(cfg)
     require(np.isfinite(res.mesh.vertices).all()
-            and res.mesh.vertices.shape == (13665, 3), "bad output mesh")
+            and res.mesh.vertices.shape == (nv, 3)
+            and st["mesh_V"] == nv, "bad output mesh")
     require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
     require(st["nr_inverted"] == 0, "inverted elements")
     ran = st["solver_resolved"]
@@ -804,9 +896,10 @@ def run_gravity(torch, solver, configs=(CONFIG,), label=None,
 
 
 def phase_slice(torch):
-    """The first slice's path: host SuperLU."""
+    """The first slice's path: host SuperLU, cold only (its warm
+    re-solve left the script for the NHI phase's time)."""
     t0 = time.perf_counter()
-    res, launches, per = run_gravity(torch, "host_lu")
+    res, launches, per = run_gravity(torch, "host_lu", warm=False)
     say("host_lu: factor s/restart=%.4f (%d)  backsolve s/solve=%.5f (%d)  "
         "K1+K2 ms/order=%.4f (%d)  bias_pull ms/order=%.4f (%d)  "
         "jac+K1 start s/restart=%.4f (%d)  f(x0) s=%.4f (%d)" % (
@@ -869,8 +962,11 @@ def phase_arap(torch, verts_rest):
     out = {}
     for solver in ("host_lu", "band_chol"):
         label = "arap " + solver
+        # host LU cold only (its warm re-solve left the script for the
+        # NHI phase's time)
         res, launches, per = run_gravity(torch, solver, ARAP_CONFIGS, label,
-                                         allow_fallback=solver == "band_chol")
+                                         allow_fallback=solver == "band_chol",
+                                         warm=solver == "band_chol")
         st = res.stat
         say("%s: expansions %s, fallbacks to host LU %s at (restart, kind) "
             "%s; factor s/restart=%.4f (%d)  solve ms/solve=%.4f (%d)  "
@@ -901,6 +997,217 @@ def phase_arap(torch, verts_rest):
     phase_done("arap", t0)
     stats = {s: r.stat for s, (r, _) in out.items()}
     return out["band_chol"][1], stats, verts
+
+
+def band_line(label, res, launches, per):
+    """Print the band path's fallbacks, refinement trips and scopes of a
+    gravity run; returns the refinement trips per solve."""
+    st = res.stat
+    solves = per["sparse_solve"][0]
+    trips = launches["band_solve"] / solves - 1 if solves else float("nan")
+    say("%s: expansions %s, fallbacks to host LU %s at (restart, kind) %s; "
+        "refinement trips/solve=%.3f  factor s/restart=%.4f (%d)  solve "
+        "ms/solve=%.4f (%d)  step ms/order=%.4f (%d)  jac+start "
+        "s/restart=%.4f (%d)  f(x0) s=%.4f (%d)" % (
+            label, json.dumps(st["expansions"]),
+            json.dumps(st["band_fallbacks"]), res.solver.band_fallback_log,
+            trips, per["sparse_prep"][1], per["sparse_prep"][0],
+            per["sparse_solve"][1] * 1e3, solves,
+            per["order_step"][1] * 1e3, per["order_step"][0],
+            per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
+            per["eval_fx0"][1], per["eval_fx0"][0]))
+    return trips
+
+
+def phase_nhi(torch):
+    """The NHI cell (human as it is) on the band solver, cold and warm,
+    and on host LU, cold; a band fallback to host LU is counted, printed
+    with its restart, and accepted when the run converges.  Returns the
+    band run's result and launch counts and both runs' stats."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {}
+    for solver in ("band_chol", "host_lu"):
+        label = "nhi " + solver
+        res, launches, per = run_gravity(
+            torch, solver, HUMAN_CONFIGS, label,
+            allow_fallback=solver == "band_chol", warm=solver == "band_chol")
+        st = res.stat
+        if solver == "band_chol":
+            band_line(label, res, launches, per)
+            need = NHI_KERNELS + ("remap_in", "remap_out", "element_matvec",
+                                  "band_assemble", "band_factor",
+                                  "band_solve")
+        else:
+            say("%s: factor s/restart=%.4f (%d)  backsolve s/solve=%.5f (%d)"
+                "  step ms/order=%.4f (%d)" % (
+                    label, per["sparse_prep"][1], per["sparse_prep"][0],
+                    per["sparse_solve"][1], per["sparse_solve"][0],
+                    per["order_step"][1] * 1e3, per["order_step"][0]))
+            need = NHI_KERNELS + ("remap_in", "remap_out")
+        for name in need:
+            require(launches[name] > 0, "kernel %s was not launched on the "
+                    "NHI %s path" % (name, solver))
+        require(launches["nhc_step"] == 0 and launches["jac_asm"] == 0,
+                "an NHC kernel ran on the NHI path")
+        rel = abs(st["displacement"] - HUMAN_DISPLACEMENT) / HUMAN_DISPLACEMENT
+        say("%s: restarts %d (JAX package on the CPU: %d); displacement "
+            "%.16g vs the JAX package's %.16g: rel diff %.3e (tol 1e-9)"
+            % (label, st["iter"], HUMAN_CPU_RESTARTS, st["displacement"],
+               HUMAN_DISPLACEMENT, rel))
+        require(rel <= 1e-9, "NHI displacement differs from the JAX "
+                "package's")
+        out[solver] = (res, launches)
+    verts = out["band_chol"][0].mesh.vertices
+    verts_lu = out["host_lu"][0].mesh.vertices
+    model = out["host_lu"][0].solver.model
+    disp = float(np.abs(model.lt_inp.copy_vtx_values(verts_lu)
+                        - model.x0()).max())
+    diff = float(np.abs(verts - verts_lu).max()) / disp
+    say("nhi: band_chol vs host_lu coordinates: max diff / max "
+        "displacement %.3e (tol %.0e)" % (diff, BAND_COORD_RTOL))
+    require(diff <= BAND_COORD_RTOL, "NHI band and host-LU equilibria "
+            "differ")
+    phase_done("nhi", t0)
+    stats = {s: r.stat for s, (r, _) in out.items()}
+    return out["band_chol"][0], out["band_chol"][1], stats
+
+
+def nhi_step_flops(k):
+    """f64 operations per element of K1n at commit order k + bias k+1,
+    counting only terms the data needs (not the zero g_{k+1} terms)."""
+    m = k + 1
+    commit = (36 * (k + 1) + 9 + 6 * (k + 1) + 9 * (2 * k + 1)  # C, J, Q
+              + 18 * (k + 1) + 6 * max(k - 1, 0) + 5  # Ic, A
+              + 4 * (k + 1) + 5)  # s
+    bias = (36 * (m - 1) + 9 + 6 * m + 9 * (2 * m + 1)
+            + 18 * (m - 1) + 6 * (m - 1) + 5 + 4 * (m + 1) + 5
+            + 36 * m + 18)  # P
+    return commit + bias
+
+
+def phase_nhi_kernels(torch, timing, res):
+    """K1n and K3n against their plain versions on the human model state
+    of the NHI band run ``res`` (its model, load, band plan and
+    equilibrium)."""
+    from sanm_tpu_torch.ops import nhi_series as K1n
+    from sanm_tpu_torch.solver import assemble as K23
+
+    t0 = time.perf_counter()
+    model, f_load = res.solver.model, res.solver.eqn_y
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    rows = {}
+    report = reporter(rows)
+    plan = res.solver.band_plan()
+    say("human model: B=%d n=%d nnz=%d; band plan: s=%d bw=%d nb=%d mean "
+        "reach %.2f blocks; factor %.3f GB, working band %.3f GB, %.4e f64 "
+        "operations" % (B, asm.n, asm.nnz, plan.s, plan.bw, plan.nb,
+                        float(plan.blk_w.mean()), plan.mem_bytes() / 1e9,
+                        plan.work_mem_bytes() / 1e9, plan.factor_flops()))
+
+    # ---- K3n at the equilibrium ----
+    x_eq = model.lt_inp.copy_vtx_values(res.mesh.vertices)
+    gin = K23.remap_in(asm, asm.pad_vector(x_eq))
+    F = elems.deformation_gradient(gin)
+    strain = float((F - torch.eye(3, dtype=F.dtype, device="cuda"))
+                   .abs().max())
+    del F
+    say("human equilibrium: max |F - I| = %.4f" % strain)
+    require(strain >= 1e-3, "the NHI equilibrium is not deformed")
+    data, E = K23.jac_asm_nhi(asm, elems, gin)
+    data_p, E_p = K23.jac_asm_nhi_plain(asm, elems, gin)
+    e_d, r_d = rel_err(data, data_p)
+    e_e, r_e = rel_err(E, E_p)
+    del data_p, E_p
+    flops = B * (900 + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
+    report("jac_asm_nhi", max(e_d, e_e), max(r_d, r_e),
+           timing.kernel_ms(lambda: K23.jac_asm_nhi(asm, elems, gin),
+                            reps=5),
+           timing.ms(lambda: K23.jac_asm_nhi_plain(asm, elems, gin),
+                     reps=2, warmup=1),
+           bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
+                           asm.nz_ptr, asm.nz_slot, E, data), flops))
+    del data, E
+
+    # ---- K1n along a real first restart from the rest shape, solved
+    # with the card's band factor (host SuperLU of the human mesh takes
+    # seconds a factor).  At k it reads the 25 components of orders <= k,
+    # gin, Dm^-1 and writes order k's components and the bias ----
+    err_k, worst, ms_k, plain_k, bnd_k = series_row(
+        timing, "K1n", model, f_load, K1n.NHISeries(elems, 20),
+        K1n.nhi_step, K1n.nhi_step_plain, K1n.GROUPS,
+        lambda h, k: h[: k + 2],
+        lambda k: bound_ms(8 * B * (K1n.NCOMP * (k + 1) + 27),
+                           B * nhi_step_flops(k)),
+        factor=band_chol_factor(model, plan))
+    report("nhi_step", err_k, worst, ms_k, plain_k, (bnd_k, "bytes"),
+           extra="(mean over the 19 per-order launches of one restart)")
+    torch.cuda.empty_cache()
+    phase_done("nhi kernels", t0)
+    return rows
+
+
+def refine_trace(torch, label, configs, trips=8):
+    """The relative residual ||b - A x|| / ||b|| after 0..``trips``
+    refinement trips of the card's band solve against K4 (no early exit),
+    with the tangent at rest of the task of ``configs``, for two
+    right-hand sides: the gravity load (the first solve of a restart)
+    and A v for a smooth v (no cancellation in b)."""
+    from functools import partial
+
+    import numpy as np
+
+    from sanm_tpu_torch.solver.assemble import element_matvec
+    from sanm_tpu_torch.solver.band import (BandPlan, DeviceBandCholSolver,
+                                            band_solve)
+    from sanm_tpu_torch.solver.linear import chol_refine_solve
+
+    model, f_load = armadillo_model(configs)
+    asm = model.asm
+    data, E = model.jac_asm(asm.apply_in(model.x0()))
+    mv = partial(element_matvec, asm, E)
+    plan = BandPlan(asm.csr_rowidx, asm.csr_cols, asm.n)
+    s = DeviceBandCholSolver(plan, data, mv)
+    require(s.factor_ok(), "band factor at rest not finite")
+    v = torch.sin(torch.arange(asm.n, dtype=torch.float64,
+                               device="cuda") * 1e-3)
+    for name, b in (("gravity load", torch.as_tensor(f_load).cuda()),
+                    ("A v", mv(v))):
+        rel = [float(chol_refine_solve(
+            lambda r: band_solve(plan, s.panels, r), s.scale, b, mv,
+            refine_steps=k, rtol=0.0, with_resid=True)[2])
+            for k in range(trips + 1)]
+        say("refinement %s (%s): rel residual after 0..%d trips %s"
+            % (label, name, trips, " ".join("%.1e" % r for r in rel)))
+        require(np.isfinite(rel).all(), "refinement not finite")
+
+
+def phase_records(torch):
+    """Records outside the smoke run: the jet NHI cell
+    (``configs/jet.json``) on band_chol and on host_lu, cold (a fallback
+    is counted and printed, and a run passes if it converges), and the
+    refinement trace of :func:`refine_trace` on armadillo-small NHC,
+    human NHI and jet NHI."""
+    t0 = time.perf_counter()
+    stats = {}
+    for solver in ("band_chol", "host_lu"):
+        label = "jet " + solver
+        res, launches, per = run_gravity(
+            torch, solver, JET_CONFIGS, label,
+            allow_fallback=solver == "band_chol", warm=False)
+        if solver == "band_chol":
+            band_line(label, res, launches, per)
+        stats[solver] = res.stat
+    del res
+    for label, configs in (("armadillo-small NHC", [CONFIG]),
+                           ("human NHI", HUMAN_CONFIGS),
+                           ("jet NHI", JET_CONFIGS)):
+        refine_trace(torch, label, configs)
+        torch.cuda.empty_cache()
+    phase_done("records", t0)
+    return stats
 
 
 def svd_w_check(torch, m):
@@ -1025,12 +1332,24 @@ def phase_arap_kernels(torch, timing, verts_eq):
     return rows
 
 
+def write_out(out_dir, stats):
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(_LOG) + "\n")
+        with open(os.path.join(out_dir, "chip_smoke_stat.json"), "w") as f:
+            json.dump(stats, f, indent=1)
+
+
 def main(argv):
+    records = "--records" in argv
+    argv = [a for a in argv if a != "--records"]
     out_dir = None
     if len(argv) == 2 and argv[0] == "--out":
         out_dir = argv[1]
     elif argv:
-        print("usage: python3 chip_smoke.py [--out DIR]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--records] [--out DIR]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -1042,6 +1361,12 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_s = phase_build()
+    if records:
+        stats = phase_records(torch)
+        write_out(out_dir, {"jet": stats})
+        faulthandler.cancel_dump_traceback_later()
+        say("records done in %.2f s" % (time.perf_counter() - _T0))
+        return 0
     _, stat_lu, verts_lu = phase_slice(torch)
     verts_rest = rest_vertices()
     launches, stat, verts_eq, band_solver = phase_band(
@@ -1049,20 +1374,25 @@ def main(argv):
     torch.cuda.empty_cache()
     launches_arap, stats_arap, verts_arap = phase_arap(torch, verts_rest)
     torch.cuda.empty_cache()
+    res_nhi, launches_nhi, stats_nhi = phase_nhi(torch)
+    torch.cuda.empty_cache()
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
-    del timing
+    rows.update(phase_nhi_kernels(torch, timing, res_nhi))
+    del timing, res_nhi
     torch.cuda.empty_cache()
     phase_parity()
     phase_profile(torch, band_solver)
     del band_solver
     kern = []
-    for name in KERNELS + ARAP_KERNELS:
+    for name in KERNELS + ARAP_KERNELS + NHI_KERNELS:
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
-        # for K1-K5, the ARAP band phase for K8a-c
-        runs = launches_arap if name in ARAP_KERNELS else launches
+        # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
+        # K1n and K3n
+        runs = (launches_arap if name in ARAP_KERNELS else
+                launches_nhi if name in NHI_KERNELS else launches)
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=runs[name],
@@ -1070,13 +1400,8 @@ def main(argv):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     say("build_s=%.2f total_s=%.2f" % (build_s, time.perf_counter() - _T0))
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "chip_smoke.log"), "w") as f:
-            f.write("\n".join(_LOG) + "\n")
-        with open(os.path.join(out_dir, "chip_smoke_stat.json"), "w") as f:
-            json.dump({"band_chol": stat, "host_lu": stat_lu,
-                       "arap": stats_arap}, f, indent=1)
+    write_out(out_dir, {"band_chol": stat, "host_lu": stat_lu,
+                        "arap": stats_arap, "nhi": stats_nhi})
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

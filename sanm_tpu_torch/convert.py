@@ -32,13 +32,15 @@ class SliceState:
 
 def state_from_numpy(*, vertices, tets, fixed_mask, dm_inv, bias, x0,
                      f_load_sub, Lin, Lout, loc_rows, loc_cols, slot_pos,
-                     csr_rowidx, csr_cols, mu, lam, device=None) -> SliceState:
+                     csr_rowidx, csr_cols, mu, lam, kappa,
+                     device=None) -> SliceState:
     """Port tensors (float64, int32 indices) from host arrays: the mesh,
     the fixed mask, ``dm_inv`` (T, 3, 3), the shape-matrix ``bias``
     (T, 3, 3), ``x0`` and ``f_load_sub`` (n,), and the assembler plan
     (``Lin``, ``Lout``, ``loc_rows``, ``loc_cols``, ``slot_pos``,
-    ``csr_rowidx``, ``csr_cols``) with the Lame parameters (both
-    materials' kernels read the same per-element constants)."""
+    ``csr_rowidx``, ``csr_cols``) with the Lame parameters and the bulk
+    modulus (every material's kernels read the same per-element
+    constants)."""
     dev = resolve_device(device)
     T = np.asarray(tets).shape[0]
     n = np.asarray(x0).size
@@ -48,7 +50,7 @@ def state_from_numpy(*, vertices, tets, fixed_mask, dm_inv, bias, x0,
 
     elems = Elements(dminv=f64(np.reshape(dm_inv, (T, 9))),
                      bias=f64(np.reshape(bias, (T, 9))),
-                     mu=float(mu), lam=float(lam))
+                     mu=float(mu), lam=float(lam), kappa=float(kappa))
     asm = DeviceAssembler(Lin, Lout, loc_rows, loc_cols, slot_pos,
                           csr_rowidx, csr_cols, n_rows=n, n=n, device=dev)
     return SliceState(

@@ -1,5 +1,5 @@
-// K3 and K8c: element Jacobian of the stress and the condensed CSR
-// assembly, for the NHC (K3) and the ARAP (K8c) material.
+// K3, K3n and K8c: element Jacobian of the stress and the condensed CSR
+// assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c) material.
 //
 // Replaces jac_asm of sanm_tpu/solver/anm.py _hybrid_fns (:278-291):
 // batched_jacobian (sanm_tpu/taylor.py:611, forward-mode 9x9 Jacobian of
@@ -21,6 +21,14 @@
 //         dP_ij/dF_ml = mu d_im d_jl + (mu - lam log J) G_jm G_li
 //                       + lam G_ji G_lm,
 //         chained through F = (g + bias) Dm^-1.
+//   NHI:  P = mu A F + c F^-T, A = J^(-2/3),
+//         c = (-mu/3) A Ic + kap J^2 - kap J (sanm_tpu/fea/material.py:80),
+//         dP_ij/dF_mn = mu A d_im d_jn - (2/3) mu A F_ij G_nm
+//                       + G_ji [d1 G_nm - (2/3) mu A F_mn] - c G_jm G_ni,
+//         d1 = (2mu/9) A Ic + 2 kap J^2 - kap J, chained as NHC's.
+//         K3n replaces the same batched_jacobian + assemble_csr_elem on
+//         the NHI graph; its bound is K3's (the same bytes, ~40 more
+//         operations an entry).
 //   ARAP: P = mu (F - W), W = polar_w(F), from K8a's U, s, W of F (the
 //         JVP of sanm_tpu/ops/svd_w.py:173): for dg = e_m e_n^T,
 //         dF = e_m Dm^-1[n, :], A = U^T dF V = U[m, :]^T (Dm^-1 V)[n, :],
@@ -43,6 +51,47 @@ constexpr int kThreads = 256;
 
 constexpr double kClipEps = 1e-12;  // ops/svd_w.py CLIP_EPS
 
+// What both Neo-Hookean Jacobians read: Dm^-1 (M), F = (g0 + bias) M,
+// G = F^-1 = cof(F)^T / J, J = det F and H = M G.
+__device__ __forceinline__ void nh_factors(const double* __restrict__ gin0,
+                                           const double* __restrict__ bias,
+                                           const double* __restrict__ dminv,
+                                           int64_t b, double* M, double* F,
+                                           double* G, double* H, double& J) {
+    for (int i = 0; i < 9; ++i) M[i] = dminv[b * 9 + i];
+    for (int i = 0; i < 3; ++i) {
+        double ds[3];
+        for (int l = 0; l < 3; ++l)
+            ds[l] = gin0[b * 9 + i * 3 + l] + bias[b * 9 + i * 3 + l];
+        for (int j = 0; j < 3; ++j) {
+            double acc = 0.0;
+            for (int l = 0; l < 3; ++l) acc += ds[l] * M[l * 3 + j];
+            F[i * 3 + j] = acc;
+        }
+    }
+    // cofactor C, J = det F, G = F^-1 = C^T / J
+    double C[9];
+    for (int i = 0; i < 3; ++i) {
+        const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
+        for (int j = 0; j < 3; ++j) {
+            const int k0 = j == 0 ? 1 : 0, k1 = j == 2 ? 1 : 2;
+            double mnr = F[r0 * 3 + k0] * F[r1 * 3 + k1] -
+                         F[r0 * 3 + k1] * F[r1 * 3 + k0];
+            C[i * 3 + j] = ((i + j) & 1) ? -mnr : mnr;
+        }
+    }
+    J = F[0] * C[0] + F[1] * C[1] + F[2] * C[2];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) G[i * 3 + j] = C[j * 3 + i] / J;
+    // H = Dm^-1 G
+    for (int n = 0; n < 3; ++n)
+        for (int i = 0; i < 3; ++i) {
+            double acc = 0.0;
+            for (int l = 0; l < 3; ++l) acc += M[n * 3 + l] * G[l * 3 + i];
+            H[n * 3 + i] = acc;
+        }
+}
+
 // The NHC Jacobian in g at F = (g0 + bias) Dm^-1:
 // Jg[(i,j), (m,n)] = sum_l dP_ij/dF_ml Dm^-1_nl, written to sJ (81) by
 // the lanes of one warp.
@@ -54,39 +103,8 @@ struct NHCJacobian {
 
     static __device__ void fill(const Params& prm, int64_t b, int lane,
                                 double* sJ) {
-        double M[9], F[9], G[9], H[9];
-        for (int i = 0; i < 9; ++i) M[i] = prm.dminv[b * 9 + i];
-        for (int i = 0; i < 3; ++i) {
-            double ds[3];
-            for (int l = 0; l < 3; ++l)
-                ds[l] = prm.gin0[b * 9 + i * 3 + l] + prm.bias[b * 9 + i * 3 + l];
-            for (int j = 0; j < 3; ++j) {
-                double acc = 0.0;
-                for (int l = 0; l < 3; ++l) acc += ds[l] * M[l * 3 + j];
-                F[i * 3 + j] = acc;
-            }
-        }
-        // cofactor C, J = det F, G = F^-1 = C^T / J
-        double C[9];
-        for (int i = 0; i < 3; ++i) {
-            const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
-            for (int j = 0; j < 3; ++j) {
-                const int k0 = j == 0 ? 1 : 0, k1 = j == 2 ? 1 : 2;
-                double mnr = F[r0 * 3 + k0] * F[r1 * 3 + k1] -
-                             F[r0 * 3 + k1] * F[r1 * 3 + k0];
-                C[i * 3 + j] = ((i + j) & 1) ? -mnr : mnr;
-            }
-        }
-        const double J = F[0] * C[0] + F[1] * C[1] + F[2] * C[2];
-        for (int i = 0; i < 3; ++i)
-            for (int j = 0; j < 3; ++j) G[i * 3 + j] = C[j * 3 + i] / J;
-        // H = Dm^-1 G
-        for (int n = 0; n < 3; ++n)
-            for (int i = 0; i < 3; ++i) {
-                double acc = 0.0;
-                for (int l = 0; l < 3; ++l) acc += M[n * 3 + l] * G[l * 3 + i];
-                H[n * 3 + i] = acc;
-            }
+        double M[9], F[9], G[9], H[9], J;
+        nh_factors(prm.gin0, prm.bias, prm.dminv, b, M, F, G, H, J);
         const double c1 = prm.mu - prm.lam * log(J);
         for (int idx = lane; idx < 81; idx += 32) {
             const int p = idx / 9, q = idx % 9;
@@ -94,6 +112,45 @@ struct NHCJacobian {
             double v = c1 * G[j * 3 + m] * H[n * 3 + i] +
                        prm.lam * G[j * 3 + i] * H[n * 3 + m];
             if (i == m) v += prm.mu * M[n * 3 + j];
+            sJ[idx] = v;
+        }
+    }
+};
+
+// The NHI Jacobian in g at F = (g0 + bias) Dm^-1, written to sJ (81) by
+// the lanes of one warp: with R = F M^T,
+// Jg[(i,j), (m,n)] = mu A d_im M_nj - (2/3) mu A F_ij H_nm
+//                    + G_ji (d1 H_nm - (2/3) mu A R_mn) - c G_jm H_ni.
+struct NHIJacobian {
+    struct Params {
+        const double *gin0, *bias, *dminv;
+        double mu, kap;
+    };
+
+    static __device__ void fill(const Params& prm, int64_t b, int lane,
+                                double* sJ) {
+        double M[9], F[9], G[9], H[9], J, R[9];
+        nh_factors(prm.gin0, prm.bias, prm.dminv, b, M, F, G, H, J);
+        double Ic = 0.0;
+        for (int i = 0; i < 9; ++i) Ic += F[i] * F[i];
+        for (int m = 0; m < 3; ++m)
+            for (int n = 0; n < 3; ++n)
+                R[m * 3 + n] = F[m * 3] * M[n * 3] +
+                               F[m * 3 + 1] * M[n * 3 + 1] +
+                               F[m * 3 + 2] * M[n * 3 + 2];
+        const double mu = prm.mu, kap = prm.kap;
+        const double A = pow(J, -2.0 / 3.0);
+        const double c = (-mu / 3.0) * A * Ic + kap * J * J - kap * J;
+        const double d1 = (2.0 * mu / 9.0) * A * Ic + 2.0 * kap * J * J -
+                          kap * J;
+        const double a23 = (2.0 * mu / 3.0) * A;
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
+            double v = -a23 * F[i * 3 + j] * H[n * 3 + m] +
+                       G[j * 3 + i] * (d1 * H[n * 3 + m] - a23 * R[m * 3 + n]) -
+                       c * G[j * 3 + m] * H[n * 3 + i];
+            if (i == m) v += mu * A * M[n * 3 + j];
             sJ[idx] = v;
         }
     }
@@ -235,4 +292,16 @@ extern "C" int sanm_jac_asm_arap(const double* u, const double* s,
     return jac_asm<ARAPJacobian>({u, s, w, dminv, mu}, Lout, Lin, nz_ptr,
                                  nz_slot, E, data, B, Dout, Din, nnz,
                                  (cudaStream_t)stream);
+}
+
+extern "C" int sanm_jac_asm_nhi(const double* gin0, const double* bias,
+                                const double* dminv, const double* Lout,
+                                const double* Lin, const int32_t* nz_ptr,
+                                const int32_t* nz_slot, double* E,
+                                double* data, int64_t B, int Dout, int Din,
+                                int64_t nnz, double mu, double kappa,
+                                void* stream) {
+    return jac_asm<NHIJacobian>({gin0, bias, dminv, mu, kappa}, Lout, Lin,
+                                nz_ptr, nz_slot, E, data, B, Dout, Din, nnz,
+                                (cudaStream_t)stream);
 }

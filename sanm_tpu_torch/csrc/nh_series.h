@@ -1,0 +1,110 @@
+// What the two Neo-Hookean series steps share: K1 (nhc_series.cu) and K1n
+// (nhi_series.cu).  Both stresses read F, J = det F and Q = F^-T, so both
+// keep the same first 22 history components and the same order-m
+// recurrences for them:
+//   F_m  = g_m Dm^-1 (plus the bias at m = 0)
+//   C_m  = sum_{t=0..m} minor products of F_t and F_{m-t}     (cofactor)
+//   J_m  = sum_{t=0..m} F_t[0,:] . C_{m-t}[0,:]
+//   Q_m  = (C_m - Q_0 J_m - sum_{0<t<m} Q_t J_{m-t}) / J_0    (div rule)
+//
+// Histories: hist (order+1, NC, B) float64, element index fastest, so a
+// warp's loads of one component are one contiguous run; components F 0-8,
+// C row 0 9-11 (J is the only later reader of C, and it reads row 0),
+// Q 12-20, J 21, then the material's own from 22.
+#pragma once
+#include <cstdint>
+
+namespace nh_series {
+
+constexpr int cF = 0, cC = 9, cQ = 12, cJ = 21;
+
+template <int NC>
+struct Hist {
+    double* h;
+    int64_t B, b;
+    __device__ double get(int t, int c) const {
+        return h[((int64_t)t * NC + c) * B + b];
+    }
+    __device__ void set(int t, int c, double v) const {
+        h[((int64_t)t * NC + c) * B + b] = v;
+    }
+};
+
+// F_t as 9 values: the order-m coefficient comes from registers.
+template <int NC>
+__device__ __forceinline__ void load_F(const Hist<NC>& H, int t, int m,
+                                       const double* Fm, double* out) {
+    if (t == m) {
+        for (int i = 0; i < 9; ++i) out[i] = Fm[i];
+    } else {
+        for (int i = 0; i < 9; ++i) out[i] = H.get(t, cF + i);
+    }
+}
+
+// F_k = g_k Dm^-1 of element b (the bias added at k = 0).
+__device__ __forceinline__ void order_f(const double* __restrict__ gin,
+                                        const double* __restrict__ bias,
+                                        const double* __restrict__ dminv,
+                                        int64_t b, int k, double* Fk) {
+    double g[9];
+    for (int i = 0; i < 9; ++i)
+        g[i] = k == 0 ? gin[b * 9 + i] + bias[b * 9 + i] : gin[b * 9 + i];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+            double acc = 0.0;
+            for (int l = 0; l < 3; ++l)
+                acc += g[i * 3 + l] * dminv[b * 9 + l * 3 + j];
+            Fk[i * 3 + j] = acc;
+        }
+}
+
+// C_m, J_m and Q_m of order m from the histories of orders < m and
+// F_m = Fm.
+template <int NC>
+__device__ __forceinline__ void cofactor_terms(const Hist<NC>& H, int m,
+                                               const double* Fm, double* Cm,
+                                               double& Jm, double* Qm) {
+    // ---- C_m: two Cauchy sums per minor, then the sign ----
+    double s1[9], s2[9];
+    for (int i = 0; i < 9; ++i) s1[i] = s2[i] = 0.0;
+    for (int t = 0; t <= m; ++t) {
+        double A[9], Bv[9];
+        load_F(H, t, m, Fm, A);
+        load_F(H, m - t, m, Fm, Bv);
+        for (int i = 0; i < 3; ++i) {
+            const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
+            for (int j = 0; j < 3; ++j) {
+                const int c0 = j == 0 ? 1 : 0, c1 = j == 2 ? 1 : 2;
+                s1[i * 3 + j] += A[r0 * 3 + c0] * Bv[r1 * 3 + c1];
+                s2[i * 3 + j] += A[r0 * 3 + c1] * Bv[r1 * 3 + c0];
+            }
+        }
+    }
+    for (int i = 0; i < 9; ++i) {
+        double mnr = s1[i] - s2[i];
+        Cm[i] = (((i / 3) + (i % 3)) & 1) ? -mnr : mnr;
+    }
+    // ---- J_m = sum_t F_t[0,:] . C_{m-t}[0,:] ----
+    Jm = 0.0;
+    for (int t = 0; t <= m; ++t) {
+        for (int j = 0; j < 3; ++j) {
+            double f = t == m ? Fm[j] : H.get(t, cF + j);
+            double c = t == 0 ? Cm[j] : H.get(m - t, cC + j);
+            Jm += f * c;
+        }
+    }
+    // ---- Q_m: the quotient C / J ----
+    if (m == 0) {
+        for (int i = 0; i < 9; ++i) Qm[i] = Cm[i] / Jm;
+        return;
+    }
+    const double J0 = H.get(0, cJ);
+    for (int i = 0; i < 9; ++i) {
+        double conv = 0.0;
+        for (int t = 1; t < m; ++t)
+            conv += H.get(t, cQ + i) * H.get(m - t, cJ);
+        Qm[i] = (Cm[i] - H.get(0, cQ + i) * Jm - conv) / J0;
+    }
+}
+
+}  // namespace nh_series

@@ -100,6 +100,24 @@ int sanm_jac_asm_arap(const double* u, const double* s, const double* w,
                       int64_t B, int Dout, int Din, int64_t nnz, double mu,
                       void* stream);
 
+// K1n: commit order k of the NHI series histories hist (order+1, 25, B)
+// from the graph input g_k (B, 9) (plus bias at k = 0), then, when
+// want_bias, write the order-(k+1) bias of P (B, 9) into bias_out.
+int sanm_nhi_step(double* hist, const double* gin, const double* bias,
+                  const double* dminv, double* bias_out, int64_t B, int k,
+                  int order, double mu, double kappa, int want_bias,
+                  void* stream);
+
+// K3n: per element the NHI Jacobian of P in g (9x9) at
+// F = (g0 + bias) Dm^-1 (shear modulus mu, bulk modulus kappa), then E and
+// the CSR values as sanm_jac_asm.
+int sanm_jac_asm_nhi(const double* gin0, const double* bias,
+                     const double* dminv, const double* Lout,
+                     const double* Lin, const int32_t* nz_ptr,
+                     const int32_t* nz_slot, double* E, double* data,
+                     int64_t B, int Dout, int Din, int64_t nnz, double mu,
+                     double kappa, void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

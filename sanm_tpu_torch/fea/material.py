@@ -2,9 +2,9 @@
 
 Port of ``sanm_tpu/fea/material.py`` (reference ``fea/material.{h,cpp}``)
 for the ported materials: the energy-model names, the moduli, ``pk1``
-for the compressible Neo-Hookean model (NHC) and for ARAP (whose SVD-W
-runs through K8a on the card), and the ARAP energy density.  The other
-models' stresses belong to later slices of the port and raise.
+for the compressible (NHC) and incompressible (NHI) Neo-Hookean models
+and for ARAP (whose SVD-W runs through K8a on the card), and the ARAP
+energy density.  StVK's stress belongs to a later slice and raises.
 
 Conventions: F deformation gradient (B, 3, 3), J = det(F),
 P first Piola-Kirchhoff stress.
@@ -68,14 +68,22 @@ class MaterialProperty:
 def pk1(energy_model: EnergyModel, material: MaterialProperty, F, dim: int):
     """First Piola-Kirchhoff stress P(F) (reference ``fea::pk1``,
     ``fea/material.cpp:55-99``)."""
+    mu = material.shear_modulus
+    if energy_model == EnergyModel.NEOHOOKEAN_I:
+        k = material.bulk_modulus
+        FTinv = batched_transpose(batched_inv(F))
+        J = batched_det(F)[:, None, None]
+        Ic = torch.sum(F * F, dim=(-1, -2))[:, None, None]
+        J23 = J ** (-2.0 / 3.0)
+        t2 = ((-mu / 3.0) * J23 * Ic + k * J * J - k * J) * FTinv
+        return mu * J23 * F + t2
     if energy_model == EnergyModel.NEOHOOKEAN_C:
-        mu = material.shear_modulus
         lam = material.lame_first
         FTinv = batched_transpose(batched_inv(F))
         J = batched_det(F)[:, None, None]
         return mu * F - mu * FTinv + lam * torch.log(J) * FTinv
     if energy_model == EnergyModel.ARAP:
-        return (F - polar_w(F)) * material.shear_modulus
+        return (F - polar_w(F)) * mu
     raise SANMError(f"pk1 for {energy_model} is not ported yet")
 
 

@@ -8,7 +8,7 @@ F = (g + bias) Dm^-1; the output remap (rest-shape normals) turns P into
 nodal forces.  The model lives on one device: its remaps run through
 the K2 kernels (``solver/assemble.py``) and the stress in f64 torch
 (ARAP's SVD-W through K8a).  It hands the ANM driver its material's
-series (K1 for NHC, K8b for ARAP) and Jacobian assembly (K3, K8c).
+series and Jacobian assembly (:data:`MATERIAL_KERNELS`).
 """
 
 from __future__ import annotations
@@ -22,16 +22,33 @@ from .. import resolve_device
 from ..ops.arap_series import ARAPSeries
 from ..ops.elements import Elements
 from ..ops.nhc_series import NHCSeries
+from ..ops.nhi_series import NHISeries
 from ..ops.svd_w import svd_w
-from ..solver.assemble import DeviceAssembler, jac_asm, jac_asm_arap
+from ..solver.assemble import (DeviceAssembler, jac_asm, jac_asm_arap,
+                               jac_asm_nhi)
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
 from .material import EnergyModel, MaterialProperty, pk1
 from .mesh import TetrahedralMesh
 from .remap import ForceOutputRemap, ShapeMatRemap
 
+
+def _jac_asm_arap(asm, elems, gin0):
+    """K8a's SVD-W of F at ``gin0``, then K8c."""
+    return jac_asm_arap(asm, elems,
+                        *svd_w(elems.deformation_gradient(gin0)))
+
+
+#: per ported energy model, its series class (K1, K1n, K8b) and its
+#: Jacobian assembly ``(asm, elems, gin0) -> (data, E)`` (K3, K3n,
+#: K8a + K8c)
+MATERIAL_KERNELS = {
+    EnergyModel.NEOHOOKEAN_C: (NHCSeries, jac_asm),
+    EnergyModel.NEOHOOKEAN_I: (NHISeries, jac_asm_nhi),
+    EnergyModel.ARAP: (ARAPSeries, _jac_asm_arap),
+}
 #: the energy models whose series and Jacobian kernels are ported
-PORTED = (EnergyModel.NEOHOOKEAN_C, EnergyModel.ARAP)
+PORTED = tuple(MATERIAL_KERNELS)
 
 
 @dataclass
@@ -62,19 +79,15 @@ class ElasticForceModel:
 
     def series(self, order: int):
         """The material's Taylor-series state for one expansion of
-        ``order``: :class:`NHCSeries` (K1) or :class:`ARAPSeries` (K8b)."""
-        if self.energy_model == EnergyModel.ARAP:
-            return ARAPSeries(self.elems, order)
-        return NHCSeries(self.elems, order)
+        ``order`` (:data:`MATERIAL_KERNELS`)."""
+        return MATERIAL_KERNELS[self.energy_model][0](self.elems, order)
 
     def jac_asm(self, gin0):
         """``(data, E)``: the CSR values and the condensed element
-        stiffness of the material's Jacobian at ``gin0`` (K3, or K8a +
-        K8c)."""
-        if self.energy_model == EnergyModel.ARAP:
-            u, s, w = svd_w(self.elems.deformation_gradient(gin0))
-            return jac_asm_arap(self.asm, self.elems, u, s, w)
-        return jac_asm(self.asm, self.elems, gin0)
+        stiffness of the material's Jacobian at ``gin0``
+        (:data:`MATERIAL_KERNELS`)."""
+        return MATERIAL_KERNELS[self.energy_model][1](self.asm, self.elems,
+                                                      gin0)
 
     def eval_force(self, x):
         """Nodal force (n,) at unknown vector x, evaluated in f64 on the
@@ -112,6 +125,7 @@ class DeformableBody:
             bias=torch.as_tensor(lt_inp.bias.reshape(T, 9)).to(dev),
             mu=self.material.shear_modulus,
             lam=self.material.lame_first,
+            kappa=self.material.bulk_modulus,
         )
         return ElasticForceModel(
             energy_model, self.material, lt_inp, lt_out,

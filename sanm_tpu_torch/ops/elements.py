@@ -1,9 +1,10 @@
 """Per-element constants of the stress graph of a forward model.
 
-Both ported materials evaluate P(F) per tetrahedron with
+The ported materials evaluate P(F) per tetrahedron with
 ``F = (g + bias) Dm^-1`` from the remapped graph input ``g``: NHC reads
-both Lame parameters, ARAP only mu.  :class:`Elements` holds what the
-per-element kernels (K1, K3, K8a-c) read besides their inputs.
+both Lame parameters, NHI mu and the bulk modulus kappa, ARAP only mu.
+:class:`Elements` holds what the per-element kernels (K1, K1n, K3, K3n,
+K8a-c) read besides their inputs.
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ import torch
 @dataclass
 class Elements:
     """Dm^-1 and the fixed-coordinate bias of Ds, both (B, 9) float64 on
-    one device, and the Lame parameters."""
+    one device, the Lame parameters and the bulk modulus."""
 
     dminv: torch.Tensor
     bias: torch.Tensor
     mu: float
     lam: float
+    kappa: float
 
     @property
     def B(self):

@@ -37,11 +37,13 @@ _M2A = [_R[i][0] * 3 + _R[j][1] for i in range(3) for j in range(3)]
 _M2B = [_R[i][1] * 3 + _R[j][0] for i in range(3) for j in range(3)]
 
 
-def _check_step(hist, k, gin, elems, out):
+def check_step(hist, k, gin, elems, out, ncomp=NCOMP):
+    """Check the arguments of a Neo-Hookean series step (histories of
+    ``ncomp`` components); returns ``(order, want_bias)``."""
     B = elems.B
-    if hist.dim() != 3 or hist.shape[1:] != (NCOMP, B):
+    if hist.dim() != 3 or hist.shape[1:] != (ncomp, B):
         raise SANMError("hist: shape %s, expected (order+1, %d, %d)"
-                        % (tuple(hist.shape), NCOMP, B))
+                        % (tuple(hist.shape), ncomp, B))
     kernels.check(hist, "hist", hist.shape, torch.float64)
     kernels.check(gin, "gin", (B, 9), torch.float64)
     kernels.check(elems.bias, "bias", (B, 9), torch.float64)
@@ -61,7 +63,7 @@ def nhc_step(hist, k: int, gin, elems: Elements, out=None):
     ``out`` (B, 9) is given, write the order-(k+1) bias of P into it.
     Launches the CUDA kernel for card tensors, runs
     :func:`nhc_step_plain` for CPU tensors, raises for anything else."""
-    order, want_bias = _check_step(hist, k, gin, elems, out)
+    order, want_bias = check_step(hist, k, gin, elems, out)
     tensors = [hist, gin, elems.bias, elems.dminv] + ([out] if want_bias
                                                       else [])
     if not kernels.on_card(*tensors):
@@ -75,10 +77,12 @@ def nhc_step(hist, k: int, gin, elems: Elements, out=None):
     return out
 
 
-def _order_pass(hist, m, Fm, mu, lam, commit):
-    """Plain order-m pass over histories 0..m-1 with F_m = ``Fm``; see
-    ``csrc/nhc_series.cu`` for the recurrences.  Commit stores C row 0,
-    Q, J and L of order m; otherwise returns P_m (B, 9)."""
+def cofactor_terms(hist, m, Fm):
+    """``(C_m, J_m, Q_m)`` (9, B), (B,), (9, B): order m of the cofactor,
+    det F and F^-T = C / J from histories 0..m-1 (F 0-8, C row 0 9-11,
+    Q 12-20, J 21, as both Neo-Hookean steps lay them out) with
+    F_m = ``Fm``; the Cauchy products and the quotient recurrence of
+    ``csrc/nh_series.h``."""
     def F(t):
         return Fm if t == m else hist[t, _F]
 
@@ -96,14 +100,23 @@ def _order_pass(hist, m, Fm, mu, lam, commit):
         for j in range(3):
             Jm = Jm + f[j] * c[j]
     if m == 0:
-        Qm = Cm / Jm
+        return Cm, Jm, Cm / Jm
+    J0 = hist[0, _J]
+    conv = torch.zeros_like(Cm)
+    for t in range(1, m):
+        conv = conv + hist[t, _Q] * hist[m - t, _J]
+    return Cm, Jm, (Cm - hist[0, _Q] * Jm - conv) / J0
+
+
+def _order_pass(hist, m, Fm, mu, lam, commit):
+    """Plain order-m pass over histories 0..m-1 with F_m = ``Fm``; see
+    ``csrc/nhc_series.cu`` for the recurrences.  Commit stores C row 0,
+    Q, J and L of order m; otherwise returns P_m (B, 9)."""
+    Cm, Jm, Qm = cofactor_terms(hist, m, Fm)
+    if m == 0:
         Lm = torch.log(Jm)
     else:
         J0 = hist[0, _J]
-        conv = torch.zeros_like(Cm)
-        for t in range(1, m):
-            conv = conv + hist[t, _Q] * hist[m - t, _J]
-        Qm = (Cm - hist[0, _Q] * Jm - conv) / J0
         cl = torch.zeros_like(Jm)
         for t in range(1, m):
             cl = cl + hist[t, _L] * hist[m - t, _J] * (t / m)
@@ -122,14 +135,20 @@ def _order_pass(hist, m, Fm, mu, lam, commit):
     return (mu * Fm - mu * Qm) + conv
 
 
-def nhc_step_plain(hist, k: int, gin, elems: Elements, out=None):
-    """Plain torch version of :func:`nhc_step` (same function, same
-    arguments)."""
-    _check_step(hist, k, gin, elems, out)
+def order_f(k, gin, elems: Elements):
+    """F_k (9, B), component-major like the histories: g_k Dm^-1, with
+    the bias added to g_0."""
     B = elems.B
     g = gin + elems.bias if k == 0 else gin
     Fk = torch.bmm(g.reshape(B, 3, 3), elems.dminv.reshape(B, 3, 3))
-    Fk = Fk.reshape(B, 9).T.contiguous()  # component-major like hist
+    return Fk.reshape(B, 9).T.contiguous()
+
+
+def nhc_step_plain(hist, k: int, gin, elems: Elements, out=None):
+    """Plain torch version of :func:`nhc_step` (same function, same
+    arguments)."""
+    check_step(hist, k, gin, elems, out)
+    Fk = order_f(k, gin, elems)
     hist[k, _F] = Fk
     _order_pass(hist, k, Fk, elems.mu, elems.lam, commit=True)
     if out is None:
@@ -156,21 +175,25 @@ class NHCSeries:
 
     ``start(gin0)`` commits order 0 (and checks that the order-1 bias is
     structurally zero); ``step(k, gin_k)`` commits order k and returns
-    the order-(k+1) bias (B, 9)."""
+    the order-(k+1) bias (B, 9).  :class:`~.nhi_series.NHISeries` is the
+    same with NHI's step and histories."""
+
+    ncomp = NCOMP
+    step_fn = staticmethod(nhc_step)
 
     def __init__(self, elems: Elements, order: int):
         self.elems = elems
         self.order = int(order)
         dev = elems.device
-        self.hist = torch.empty((self.order + 1, NCOMP, elems.B),
+        self.hist = torch.empty((self.order + 1, self.ncomp, elems.B),
                                 dtype=torch.float64, device=dev)
         self.bias_out = torch.empty((elems.B, 9), dtype=torch.float64,
                                     device=dev)
 
     def start(self, gin0):
-        b1 = nhc_step(self.hist, 0, gin0, self.elems, self.bias_out)
+        b1 = self.step_fn(self.hist, 0, gin0, self.elems, self.bias_out)
         if int(torch.count_nonzero(b1)) != 0:
             raise SANMError("order-1 bias must be structurally zero")
 
     def step(self, k: int, gin_k):
-        return nhc_step(self.hist, k, gin_k, self.elems, self.bias_out)
+        return self.step_fn(self.hist, k, gin_k, self.elems, self.bias_out)

@@ -7,9 +7,9 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
 * :func:`jac_asm` replaces ``jac_asm`` of
   ``sanm_tpu/solver/anm.py:278-291`` (``batched_jacobian`` +
   ``assemble_csr_elem``), once per restart, with the material's
-  closed-form Jacobian: K3 for the NHC stress, K8c
-  (:func:`jac_asm_arap`) for ARAP, whose SVD-W of F runs through K8a
-  first;
+  closed-form Jacobian: K3 for the NHC stress, K3n
+  (:func:`jac_asm_nhi`) for NHI, K8c (:func:`jac_asm_arap`) for ARAP,
+  whose SVD-W of F runs through K8a first;
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
   (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
   stiffness E, for the refinement and the sanity residual of the band
@@ -193,7 +193,7 @@ def element_matvec_plain(asm: DeviceAssembler, E, x):
 
 
 # ---------------------------------------------------------------------------
-# Jacobian + CSR assembly: K3 (NHC) and K8c (ARAP)
+# Jacobian + CSR assembly: K3 (NHC), K3n (NHI) and K8c (ARAP)
 # ---------------------------------------------------------------------------
 
 
@@ -209,25 +209,40 @@ def _check_jac(asm, elems, gin0):
     kernels.check(elems.bias, "bias", (asm.B, 9), _f64)
 
 
+def _jac_asm_nh(asm, elems, gin0, counter, fn_name, c2, plain):
+    """A Neo-Hookean Jacobian + assembly kernel (K3 or K3n), whose C entry
+    point takes F's inputs and (mu, ``c2``)."""
+    _check_jac(asm, elems, gin0)
+    if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
+                           asm.nz_ptr):
+        return plain(asm, elems, gin0)
+    E = torch.empty((asm.B, asm.Dout, asm.Din), dtype=_f64,
+                    device=gin0.device)
+    data = torch.empty((asm.nnz,), dtype=_f64, device=gin0.device)
+    kernels.launch(counter, fn_name, gin0.data_ptr(),
+                   elems.bias.data_ptr(), elems.dminv.data_ptr(),
+                   asm.Lout.data_ptr(), asm.Lin.data_ptr(),
+                   asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
+                   E.data_ptr(), data.data_ptr(), asm.B, asm.Dout, asm.Din,
+                   asm.nnz, float(elems.mu), float(c2))
+    return data, E
+
+
 def jac_asm(asm: DeviceAssembler, elems: Elements, gin0):
     """K3: per-element Jacobian of the NHC stress P(g) at graph input
     ``gin0`` (B, 9), condensed stiffness E (B, Dout, Din) and the CSR
     values (nnz,) over ``(asm.csr_rowidx, asm.csr_cols)``.  Returns
     ``(data, E)``."""
-    _check_jac(asm, elems, gin0)
-    if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
-                           asm.nz_ptr):
-        return jac_asm_plain(asm, elems, gin0)
-    E = torch.empty((asm.B, asm.Dout, asm.Din), dtype=_f64,
-                    device=gin0.device)
-    data = torch.empty((asm.nnz,), dtype=_f64, device=gin0.device)
-    kernels.launch("jac_asm", "sanm_jac_asm", gin0.data_ptr(),
-                   elems.bias.data_ptr(), elems.dminv.data_ptr(),
-                   asm.Lout.data_ptr(), asm.Lin.data_ptr(),
-                   asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
-                   E.data_ptr(), data.data_ptr(), asm.B, asm.Dout, asm.Din,
-                   asm.nnz, float(elems.mu), float(elems.lam))
-    return data, E
+    return _jac_asm_nh(asm, elems, gin0, "jac_asm", "sanm_jac_asm",
+                       elems.lam, jac_asm_plain)
+
+
+def jac_asm_nhi(asm: DeviceAssembler, elems: Elements, gin0):
+    """K3n: :func:`jac_asm` for the NHI stress (mu and the bulk modulus
+    kappa).  Launches the kernel for card tensors, runs
+    :func:`jac_asm_nhi_plain` for CPU tensors."""
+    return _jac_asm_nh(asm, elems, gin0, "jac_asm_nhi", "sanm_jac_asm_nhi",
+                       elems.kappa, jac_asm_nhi_plain)
 
 
 def jac_asm_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
@@ -280,6 +295,44 @@ def nhc_jacobian_plain(elems: Elements, gin0):
     return J4.reshape(B, 9, 9)
 
 
+def nhi_jacobian_plain(elems: Elements, gin0):
+    """(B, 9, 9) Jacobian of P(g) at ``gin0``: closed-form dP/dF of the
+    NHI stress P = mu A F + c F^-T (A = J^(-2/3), c = (-mu/3) A Ic +
+    kappa J^2 - kappa J) chained through F = (g + bias) Dm^-1 (see
+    ``csrc/jac_asm.cu``)."""
+    from ..ops.linalg import batched_det, batched_inv
+
+    B = elems.B
+    mu, kap = elems.mu, elems.kappa
+    M = elems.dminv.reshape(B, 3, 3)
+    F = elems.deformation_gradient(gin0)
+    G = batched_inv(F)
+    H = torch.bmm(M, G)  # H[n, m] = sum_l M[n, l] G[l, m]
+    R = torch.bmm(F, M.transpose(1, 2))  # R[m, n] = sum_l F[m, l] M[n, l]
+    J = batched_det(F)
+    Ic = (F * F).sum((1, 2))
+    A = J ** (-2.0 / 3.0)
+    c = (-mu / 3.0) * A * Ic + kap * J * J - kap * J
+    d1 = (2.0 * mu / 9.0) * A * Ic + 2.0 * kap * J * J - kap * J
+    a23 = (2.0 * mu / 3.0) * A
+
+    def b5(x):
+        return x[:, None, None, None, None]
+
+    eye = torch.eye(3, dtype=_f64, device=gin0.device)
+    GT, HT = G.transpose(1, 2), H.transpose(1, 2)
+    X = d1[:, None, None] * HT - a23[:, None, None] * R  # (B, m, n)
+    # J4[b, i, j, m, n]
+    J4 = (
+        b5(mu * A) * eye[None, :, None, :, None]
+        * M.transpose(1, 2)[:, None, :, None, :]  # mu A d_im M[n, j]
+        - b5(a23) * F[:, :, :, None, None] * HT[:, None, None, :, :]
+        + GT[:, :, :, None, None] * X[:, None, None, :, :]  # G[j, i] X[m, n]
+        - b5(c) * G[:, None, :, :, None] * HT[:, :, None, None, :]
+    )
+    return J4.reshape(B, 9, 9)
+
+
 def arap_jacobian_plain(elems: Elements, u, s, w):
     """(B, 9, 9) Jacobian of P(g) = mu (F - W(F)) from the SVD-W of F:
     per basis direction (m, n) of g, dF = e_m Dm^-1[n, :] and
@@ -307,6 +360,11 @@ def _assemble_plain(asm: DeviceAssembler, J):
 def jac_asm_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K3 (NHC)."""
     return _assemble_plain(asm, nhc_jacobian_plain(elems, gin0))
+
+
+def jac_asm_nhi_plain(asm: DeviceAssembler, elems: Elements, gin0):
+    """Plain torch version of K3n (:func:`jac_asm_nhi`)."""
+    return _assemble_plain(asm, nhi_jacobian_plain(elems, gin0))
 
 
 def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):

@@ -139,7 +139,7 @@ def _identity_elements(B, mu):
     """Elements with Dm^-1 = I and no bias, so that the graph input is F."""
     eye = torch.eye(3, dtype=torch.float64).reshape(1, 9).repeat(B, 1)
     return Elements(dminv=eye, bias=torch.zeros(B, 9, dtype=torch.float64),
-                    mu=mu, lam=0.0)
+                    mu=mu, lam=0.0, kappa=0.0)
 
 
 def test_arap_series_matches_taylor_engine():

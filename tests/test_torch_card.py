@@ -283,3 +283,68 @@ def test_arap_jacobian(arap_models):
     assert rel(data, data_p) <= ARAP_TOL["jac_asm_arap"]
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["jac_asm_arap"] == n0 + 1
+
+
+# K1n and K3n (NHI) against their plain versions.  Tolerances (relative to
+# the largest magnitude): nhi_step 1e-11 per order (f64 sums in another
+# order, with fused multiply-adds, through 19 orders of recurrences; the
+# power recurrence divides by J_0 at every order); jac_asm_nhi 1e-12.
+NHI_TOL = {"nhi_step": 1e-11, "jac_asm_nhi": 1e-12}
+
+
+@pytest.fixture
+def nhi_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = TetrahedralMesh.make_cuboid(6, 4, 4, 0.025)
+        body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                              mesh)
+        body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.0125, :] = True
+        out[dev] = body.make_forward(EnergyModel.NEOHOOKEAN_I, device=dev)
+    return out
+
+
+def test_nhi_series(nhi_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops.nhi_series import GROUPS, NHISeries
+
+    g, c = nhi_models["cuda"], nhi_models["cpu"]
+    rng = np.random.default_rng(12)
+    x0 = g.x0() + rng.uniform(-1e-3, 1e-3, g.asm.n)
+    sg = NHISeries(g.elems, 20)
+    sc = NHISeries(c.elems, 20)
+    n0 = kernels.LAUNCHES["nhi_step"]
+    sg.start(g.asm.apply_in(x0))
+    sc.start(c.asm.apply_in(x0))
+    for k in range(1, 20):
+        xk = rng.standard_normal(g.asm.n) * 1e-3 * 0.5 ** k
+        bg = sg.step(k, g.asm.apply_in(xk))
+        bc = sc.step(k, c.asm.apply_in(xk))
+        assert rel(bg, bc) <= NHI_TOL["nhi_step"], k
+        for sl in GROUPS:
+            assert rel(sg.hist[k, sl], sc.hist[k, sl]) \
+                <= NHI_TOL["nhi_step"], (k, sl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nhi_step"] == n0 + 20
+
+
+def test_nhi_jacobian(nhi_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    g = nhi_models["cuda"]
+    x = g.x0() + np.random.default_rng(13).uniform(-2e-3, 2e-3, g.asm.n)
+    gin = g.asm.apply_in(x)
+    n0 = kernels.LAUNCHES["jac_asm_nhi"]
+    data, E = K.jac_asm_nhi(g.asm, g.elems, gin)
+    data_p, E_p = K.jac_asm_nhi_plain(g.asm, g.elems, gin)
+    assert rel(E, E_p) <= NHI_TOL["jac_asm_nhi"]
+    assert rel(data, data_p) <= NHI_TOL["jac_asm_nhi"]
+    assert g.jac_asm(gin)[0].shape == data.shape
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["jac_asm_nhi"] == n0 + 2

@@ -267,6 +267,55 @@ def test_arap_wrappers_do_not_fall_back():
     assert kernels.LAUNCHES == before
 
 
+def test_nhi_wrappers_do_not_fall_back():
+    """K1n nhi_step and K3n jac_asm_nhi raise on a meta tensor, a wrong
+    dtype, shape (NHC's 23-component histories) or order range, and a
+    non-contiguous tensor; on CPU tensors they run their plain versions
+    and count no launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.ops.nhc_series import NHCSeries
+    from sanm_tpu_torch.ops.nhi_series import NHISeries, nhi_step
+    from sanm_tpu_torch.solver import assemble
+
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          TetrahedralMesh.make_cuboid(3, 2, 2, 0.1))
+    model = body.make_forward(EnergyModel.NEOHOOKEAN_I, device="cpu")
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    before = dict(kernels.LAUNCHES)
+    gin0 = asm.apply_in(model.x0())
+    with pytest.raises(SANMError):
+        assemble.jac_asm_nhi(asm, elems, gin0.to("meta"))
+    with pytest.raises(SANMError):  # wrong dtype
+        assemble.jac_asm_nhi(asm, elems, gin0.float())
+    with pytest.raises(SANMError):  # wrong shape
+        assemble.jac_asm_nhi(asm, elems, gin0[:, :8])
+    with pytest.raises(SANMError):  # not contiguous
+        assemble.jac_asm_nhi(asm, elems,
+                             torch.zeros(9, B, dtype=torch.float64).T)
+    series = NHISeries(elems, 4)
+    g = torch.zeros(B, 9, dtype=torch.float64)
+    with pytest.raises(SANMError):
+        nhi_step(series.hist.to("meta"), 0, gin0.to("meta"), elems)
+    with pytest.raises(SANMError):
+        nhi_step(series.hist, 0, gin0.float(), elems)
+    with pytest.raises(SANMError):  # NHC's histories
+        nhi_step(NHCSeries(elems, 4).hist, 0, gin0, elems)
+    with pytest.raises(SANMError):
+        nhi_step(series.hist, 0, torch.zeros(9, B, dtype=torch.float64).T,
+                 elems)
+    with pytest.raises(SANMError):  # no order 5 for the bias of order 4
+        series.step(4, g)
+    series.start(gin0)
+    series.step(1, g)
+    assemble.jac_asm_nhi(asm, elems, gin0)
+    model.jac_asm(gin0)
+    assert isinstance(model.series(4), NHISeries)
+    assert kernels.LAUNCHES == before
+
+
 def _c_entry_points(text, extern_only):
     """``{name: number of parameters}`` of the ``int sanm_*(...)``
     functions declared or defined in C source ``text``."""

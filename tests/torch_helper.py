@@ -60,7 +60,8 @@ def port_state(body, model, plan, f_sub):
         Lin=plan._Lin, Lout=plan._Lout, loc_rows=plan._loc_rows,
         loc_cols=plan._loc_cols, slot_pos=plan.slot_pos,
         csr_rowidx=plan.csr_rowidx, csr_cols=plan.csr_cols,
-        mu=mat.shear_modulus, lam=mat.lame_first, device="cpu",
+        mu=mat.shear_modulus, lam=mat.lame_first,
+        kappa=mat.bulk_modulus, device="cpu",
     )
 
 
