@@ -51,18 +51,34 @@ Phases, each timed:
    (nhi_step) along a real first restart from the rest shape (bias
    orders 2..20, solved with the card's band factor), each against its
    plain version, timed as in 5;
-10. parity: NHC, NHI and ARAP equilibria of a small cuboid, order 20,
+10. deform: ``mesh_twist`` on ``configs/armadillo_small.json`` +
+   ``armadillo_small_bend_override.json`` as it is (ARAP, implicit
+   continuation in t through K3t's t column, then an order-6 refinement)
+   with ``"solver": "band_chol"`` (cold and a warm task re-run) and
+   ``"host_lu"`` (cold), and the same bend with
+   ``override_neo_comp.json`` (NHC) on band_chol (cold): 2 deform + 1
+   refine restarts, force-RMS <= 1e-10, no inverted element, the
+   displacement within 1e-9 relative of the JAX package's CPU value
+   (``DEFORM_DISPLACEMENT``), K3t, K2, K4, K5a-c and the material's
+   kernels launched in the band runs; a band fallback to host LU is
+   printed and passes if the run converges;
+11. deform kernels: K3t (grad_t) at the bend's first restart against its
+   plain version, timed as in 5 with ``index_add_`` as its library call;
+   K2 remap_in, K8c + K3t and K4 at Din = 13 (a delta on every vertex)
+   against theirs;
+12. parity: NHC, NHI and ARAP equilibria of a small cuboid, order 20,
    solved through the kernels and through the plain versions on the CPU,
    with host LU and with the band solver: same iterations, coordinates
    within ``PARITY_RTOL``;
-11. profile: one warm band_chol re-solve of armadillo-small (NHC) under
+13. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
 
 ``python3 chip_smoke.py --records [--out DIR]`` instead runs only the
 build and :func:`phase_records`: ``configs/jet.json`` (NHI, 47,668 tets)
 on ``band_chol`` and on ``host_lu``, cold (restarts, force-RMS, the
-solver that ran, band fallbacks, refinement trips per solve), and the
-band solve's residual after each refinement trip on three meshes.
+solver that ran, band fallbacks, refinement trips per solve), the human
+ARAP bend on ``band_chol``, cold, and the band solve's residual after
+each refinement trip on three meshes.
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -98,6 +114,29 @@ HUMAN_CONFIGS = [os.path.join(ROOT, "configs", "human.json")]
 HUMAN_DISPLACEMENT = 0.008425376847673133
 HUMAN_CPU_RESTARTS = 2
 JET_CONFIGS = [os.path.join(ROOT, "configs", "jet.json")]
+# the deform cell: armadillo-small with its bend override as it is (ARAP,
+# mesh_twist: implicit continuation, then an order-6 refinement), and the
+# same bend with the NHC material
+DEFORM_CONFIGS = [CONFIG, os.path.join(ROOT, "configs",
+                                       "armadillo_small_bend_override.json")]
+DEFORM_NHC_CONFIGS = DEFORM_CONFIGS + [
+    os.path.join(ROOT, "configs", "override_neo_comp.json")]
+# the JAX package's relative displacement of these tasks on the CPU (f64,
+# host LU, 2 deform + 1 refine restarts, force-RMS 6.25e-15 and 4.75e-14),
+# from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/armadillo_small.json \
+#       configs/armadillo_small_bend_override.json \
+#       [configs/override_neo_comp.json]
+# (the stat JSON armadillo-small.json); the card's must agree to 1e-9
+# relative
+DEFORM_DISPLACEMENT = {"arap": 0.07364899211351035,
+                       "neohookean_c": 0.07357511995817433}
+DEFORM_RESTARTS = (2, 1)  # iter_deform, iter_refine
+# records: the human ARAP bend (the TPU reference: 3 + 1 restarts,
+# force-RMS 1.9e-15, RESULTS.md:247)
+HUMAN_BEND_CONFIGS = HUMAN_CONFIGS + [
+    os.path.join(ROOT, "configs", "human_bend_override.json")]
 # H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
 # TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -115,7 +154,7 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "nhc_step": 1e-11, "element_matvec": 1e-12, "band_assemble": 1e-14,
        "band_factor": 1e-10, "band_solve": 1e-12, "svd_w": 1e-12,
        "arap_step": 1e-11, "jac_asm_arap": 1e-12, "nhi_step": 1e-11,
-       "jac_asm_nhi": 1e-12}
+       "jac_asm_nhi": 1e-12, "grad_t": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -131,6 +170,7 @@ KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
            "band_assemble", "band_factor", "band_solve")
 ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
 NHI_KERNELS = ("nhi_step", "jac_asm_nhi")
+DEFORM_KERNELS = ("grad_t",)
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -145,6 +185,7 @@ REPLACES = {
     "jac_asm_arap": "sanm_tpu/ops/svd_w.py:173",
     "nhi_step": "sanm_tpu/taylor_scan.py:543",
     "jac_asm_nhi": "sanm_tpu/taylor.py:611",
+    "grad_t": "sanm_tpu/solver/remap.py:366",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -160,6 +201,7 @@ SOURCES = {
     "jac_asm_arap": "sanm_tpu_torch/csrc/jac_asm.cu",
     "nhi_step": "sanm_tpu_torch/csrc/nhi_series.cu",
     "jac_asm_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "grad_t": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -476,7 +518,8 @@ def first_restart(model, f_load, series, step, order=20, x0=None,
     asm = model.asm
     gin0 = K23.remap_in(asm, asm.pad_vector(model.x0() if x0 is None
                                             else x0))
-    solve = (factor or host_lu_factor(model))(*model.jac_asm(gin0))
+    data, _, E = model.jac_asm(gin0)
+    solve = (factor or host_lu_factor(model))(data, E)
     xgt = solve(K23.remap_out(asm, model.stress(gin0)).cpu().numpy()
                 + f_load)
     t1 = 1.0 / np.sqrt(xgt @ xgt + 1.0)
@@ -586,8 +629,8 @@ def phase_kernels(torch, timing, verts_eq):
     del S_in
 
     # ---- K3 at the deformed equilibrium ----
-    data, E = K23.jac_asm(asm, elems, gin)
-    data_p, E_p = K23.jac_asm_plain(asm, elems, gin)
+    data, _, E = K23.jac_asm(asm, elems, gin)
+    data_p, _, E_p = K23.jac_asm_plain(asm, elems, gin)
     err, rel = rel_err(data, data_p)
     err_e, rel_e = rel_err(E, E_p)
     flops = B * (800 + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
@@ -1116,8 +1159,8 @@ def phase_nhi_kernels(torch, timing, res):
     del F
     say("human equilibrium: max |F - I| = %.4f" % strain)
     require(strain >= 1e-3, "the NHI equilibrium is not deformed")
-    data, E = K23.jac_asm_nhi(asm, elems, gin)
-    data_p, E_p = K23.jac_asm_nhi_plain(asm, elems, gin)
+    data, _, E = K23.jac_asm_nhi(asm, elems, gin)
+    data_p, _, E_p = K23.jac_asm_nhi_plain(asm, elems, gin)
     e_d, r_d = rel_err(data, data_p)
     e_e, r_e = rel_err(E, E_p)
     del data_p, E_p
@@ -1149,6 +1192,221 @@ def phase_nhi_kernels(torch, timing, res):
     return rows
 
 
+def run_deform(torch, solver, configs=DEFORM_CONFIGS, label=None,
+               warm=False, want=None, device="cuda"):
+    """The ``mesh_twist`` task of the merged ``configs`` (default the
+    armadillo ARAP bend) through the port's entry point with ``solver``,
+    cold and (``warm``) one warm task re-run, with the profiler on and
+    the launch counts set to 0 just before; every run must converge
+    without inverted elements and, where ``want`` (the JAX package's
+    displacement) is given, take ``DEFORM_RESTARTS`` and agree with it to
+    1e-9 relative.  Returns the task result (its ``cold`` the first
+    run's under ``warm``), the counts and the scope stats."""
+    import numpy as np
+
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.fea import app
+    from sanm_tpu_torch.utils import ScopedProfiler
+
+    label = label or solver
+    if warm:
+        os.environ["SANM_WARM_TIMING"] = "1"
+    else:
+        os.environ.pop("SANM_WARM_TIMING", None)
+    ScopedProfiler.enabled = True
+    ScopedProfiler.reset()
+    cfg = dict(app.merge_configs(list(configs)), solver=solver)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = app.TASKS["mesh_twist"](cfg, os.path.dirname(CONFIG),
+                                          device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("SANM_WARM_TIMING", None)
+    per = {}
+    for name in ("sparse_prep", "sparse_solve", "order_step",
+                 "build_sparse_coeff", "eval_fx0"):
+        calls, tot = ScopedProfiler.stats(name)
+        per[name] = (calls, tot / calls if calls else float("nan"))
+    ScopedProfiler.enabled = False
+    nv = mesh_vertex_count(cfg)
+    for tag, r in (("cold", res.cold or res), ("warm", res if warm else None)):
+        if r is None:
+            continue
+        st = r.stat
+        rel = abs(st["displacement"] - want) / want if want else None
+        ref = ("(JAX package on the CPU: %d + %d; displacement %.16g, rel "
+               "diff %.3e, tol 1e-9)" % (*DEFORM_RESTARTS, want, rel)
+               if want else "(no CPU reference)")
+        say("%s %s: restarts %d + %d; solver_resolved=%s expansions %s band "
+            "fallbacks %s; force_rms_recomp=%.3e nr_inverted=%d; "
+            "displacement %.16g %s; time %.3f s"
+            % (label, tag, st["iter_deform"], st["iter_refine"],
+               st["solver_resolved"], json.dumps(st["expansions"]),
+               json.dumps(st["band_fallbacks"]), st["force_rms_recomp"],
+               st["nr_inverted"], st["displacement"], ref, st["time"]))
+        require(np.isfinite(r.mesh.vertices).all()
+                and r.mesh.vertices.shape == (nv, 3) and st["V"] == nv,
+                "bad output mesh")
+        require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
+        require(st["nr_inverted"] == 0, "inverted elements")
+        ran = st["solver_resolved"]
+        require(ran == solver or (solver == "band_chol" and ran == "mixed"),
+                "solver %s not taken (%s ran)" % (solver, ran))
+        if want:
+            require((st["iter_deform"], st["iter_refine"])
+                    == DEFORM_RESTARTS, "restarts differ from the JAX "
+                    "package's")
+            require(rel <= 1e-9, "displacement differs from the JAX "
+                    "package's")
+    st = res.stat
+    say("%s: task wall %.3f s%s; factor s/restart=%.4f (%d)  solve "
+        "ms/solve=%.4f (%d)  step ms/order=%.4f (%d)  jac+start "
+        "s/restart=%.4f (%d)  f(x0) s=%.4f (%d)" % (
+            label, wall, " (cold + warm; warm solve %.3f s, warm task "
+            "%.3f s)" % (st["time_solve_warm"], st["time_task_warm"])
+            if warm else "",
+            per["sparse_prep"][1], per["sparse_prep"][0],
+            per["sparse_solve"][1] * 1e3, per["sparse_solve"][0],
+            per["order_step"][1] * 1e3, per["order_step"][0],
+            per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
+            per["eval_fx0"][1], per["eval_fx0"][0]))
+    say("%s: launches %s" % (label, json.dumps(launches)))
+    return res, launches, per
+
+
+def phase_deform(torch):
+    """The deform cell (armadillo ARAP bend as it is) on the band solver,
+    cold and with a warm task re-run, and on host LU, cold; the same bend
+    with NHC on the band solver, cold.  Every run: 2 deform + 1 refine
+    restarts, force-RMS <= 1e-10, no inverted element, the displacement
+    within 1e-9 relative of the JAX package's; a band fallback to host
+    LU is printed and passes if the run converges.  Returns the ARAP band
+    run's launch counts and every run's stat."""
+    t0 = time.perf_counter()
+    stats = {}
+    band = ("grad_t", "remap_in", "remap_out", "element_matvec",
+            "band_assemble", "band_factor", "band_solve")
+    for solver, em, warm, material in (
+            ("band_chol", "arap", True, ARAP_KERNELS),
+            ("host_lu", "arap", False, ARAP_KERNELS),
+            ("band_chol", "neohookean_c", False, ("nhc_step", "jac_asm"))):
+        label = "deform %s %s" % (em, solver)
+        configs = DEFORM_CONFIGS if em == "arap" else DEFORM_NHC_CONFIGS
+        res, launches, _ = run_deform(torch, solver, configs, label, warm,
+                                      DEFORM_DISPLACEMENT[em])
+        need = material + (band if solver == "band_chol" else
+                           ("grad_t", "remap_in", "remap_out"))
+        for name in need:
+            require(launches[name] > 0, "kernel %s was not launched on the "
+                    "%s path" % (name, label))
+        if (em, solver) == ("arap", "band_chol"):
+            arap_launches = launches
+        stats[label] = res.stat
+        del res
+        torch.cuda.empty_cache()
+    phase_done("deform", t0)
+    return arap_launches, stats
+
+
+def phase_deform_kernels(torch, timing, device="cuda"):
+    """K3t against its plain version at the deform's first restart (the
+    armadillo ARAP bend at rest, t = 0), and K2 remap_in, K8c (with K3t)
+    and K4 at Din = 13 on the same mesh with a delta on every vertex
+    (the bend's plan has Din = 12: an element that reads t has a moved,
+    hence fixed, vertex), each against its plain version."""
+    import numpy as np
+
+    from sanm_tpu_torch.fea import app
+    from sanm_tpu_torch.ops import svd_w as K8a
+    from sanm_tpu_torch.solver import assemble as K23
+    from sanm_tpu_torch.solver.band import band_plan_for
+
+    t0 = time.perf_counter()
+    rows = {}
+    report = reporter(rows)
+    cfg = app.merge_configs(DEFORM_CONFIGS)
+    body, idx, dist = app.twist_setup(cfg, os.path.dirname(CONFIG))
+    delta = app.twist_delta(cfg, body.mesh.vertices, idx, dist)
+    em = app.energy_model_of(cfg)
+    model = body.make_forward(em, vtx_delta=delta, device=device)
+    asm, elems = model.asm, model.elems
+    gin = K23.remap_in(asm, asm.pad_vector(np.append(model.x0(), 0.0)))
+    data, gt, E = model.jac_asm(gin)
+    n_t = int(asm.t_slot.numel())
+    plan = band_plan_for(asm.csr_rowidx, asm.csr_cols, asm.n)
+    say("deform model: %d fixed vertices, %d of them moved; B=%d n=%d "
+        "nnz=%d Din=%d Dout=%d, %d t-column slots in %d rows; max |grad_t| "
+        "%.3e; band plan: s=%d bw=%d nb=%d mean reach %.2f blocks, factor "
+        "%.3f GB, working band %.3f GB, %.4e f64 operations" % (
+            int(body.coord_fixed_mask[:, 0].sum()), len(idx), asm.B, asm.n,
+            asm.nnz, asm.Din, asm.Dout, n_t,
+            int((asm.t_ptr[1:] > asm.t_ptr[:-1]).sum()),
+            float(gt.abs().max()), plan.s, plan.bw, plan.nb,
+            float(plan.blk_w.mean()), plan.mem_bytes() / 1e9,
+            plan.work_mem_bytes() / 1e9, plan.factor_flops()))
+    require(float(gt.abs().max()) > 0, "grad_t of the bend is zero")
+    ref = K23.grad_t_plain(asm, E)
+    err, rel = rel_err(K23.grad_t(asm, E), ref)
+    acc = torch.zeros(asm.n_rows + 1, dtype=torch.float64, device=device)
+    idx_t = asm.t_slot_row.long()
+    flat = E.reshape(-1)
+    report("grad_t", err, rel,
+           timing.kernel_ms(lambda: K23.grad_t(asm, E)),
+           timing.ms(lambda: K23.grad_t_plain(asm, E)),
+           bound_ms(nbytes(asm.t_ptr, asm.t_slot, gt) + 8 * n_t, n_t),
+           timing.ms(lambda: acc.index_add_(0, idx_t, flat)),
+           "(library: index_add_ of E over t_slot_row)")
+    del data, gt, E, ref, acc, idx_t, flat, model
+
+    # ---- Din = 13: a delta on every vertex ----
+    rng = np.random.default_rng(13)
+    h = float(np.cbrt(body.mesh.tet_volumes.mean()))
+    model = body.make_forward(
+        em, vtx_delta=rng.uniform(-0.05, 0.05, delta.shape) * h,
+        device=device)
+    asm, elems = model.asm, model.elems
+    require(asm.Din == 13, "Din %d, expected 13" % asm.Din)
+    xp = asm.pad_vector(np.append(model.x0(), 0.37))
+    gin = K23.remap_in(asm, xp)
+    e_in = rel_err(gin, K23.remap_in_plain(asm, xp))[1]
+    u, s, w = K8a.svd_w(elems.deformation_gradient(gin).contiguous())
+    data, gt, E = K23.jac_asm_arap(asm, elems, u, s, w)
+    data_p, gt_p, E_p = K23.jac_asm_arap_plain(asm, elems, u, s, w)
+    e_j = max(rel_err(a, b)[1] for a, b in ((data, data_p), (gt, gt_p),
+                                             (E, E_p)))
+    del data_p, gt_p, E_p
+    x = torch.sin(torch.arange(asm.n, dtype=torch.float64, device=device))
+    e_mv = rel_err(K23.element_matvec(asm, E, x),
+                   K23.element_matvec_plain(asm, E, x))[1]
+    say("Din 13 (B=%d n=%d nnz=%d): rel err remap_in %.2e (tol %.0e), "
+        "jac_asm_arap + grad_t %.2e (tol %.0e), element_matvec %.2e "
+        "(tol %.0e); remap_in ms=%.4f plain_ms=%.4f, jac_asm_arap ms=%.4f "
+        "plain_ms=%.4f" % (
+            asm.B, asm.n, asm.nnz, e_in, TOL["remap_in"], e_j,
+            TOL["jac_asm_arap"], e_mv, TOL["element_matvec"],
+            timing.kernel_ms(lambda: K23.remap_in(asm, xp)),
+            timing.ms(lambda: K23.remap_in_plain(asm, xp)),
+            timing.kernel_ms(lambda: K23.jac_asm_arap(asm, elems, u, s, w),
+                             reps=5),
+            timing.ms(lambda: K23.jac_asm_arap_plain(asm, elems, u, s, w),
+                      reps=2, warmup=1)))
+    require(e_in <= TOL["remap_in"] and e_j <= TOL["jac_asm_arap"]
+            and e_mv <= TOL["element_matvec"],
+            "a kernel disagrees with its plain version at Din = 13")
+    torch.cuda.empty_cache()
+    phase_done("deform kernels", t0)
+    return rows
+
+
 def refine_trace(torch, label, configs, trips=8):
     """The relative residual ||b - A x|| / ||b|| after 0..``trips``
     refinement trips of the card's band solve against K4 (no early exit),
@@ -1166,7 +1424,7 @@ def refine_trace(torch, label, configs, trips=8):
 
     model, f_load = armadillo_model(configs)
     asm = model.asm
-    data, E = model.jac_asm(asm.apply_in(model.x0()))
+    data, _, E = model.jac_asm(asm.apply_in(model.x0()))
     mv = partial(element_matvec, asm, E)
     plan = BandPlan(asm.csr_rowidx, asm.csr_cols, asm.n)
     s = DeviceBandCholSolver(plan, data, mv)
@@ -1187,9 +1445,10 @@ def refine_trace(torch, label, configs, trips=8):
 def phase_records(torch):
     """Records outside the smoke run: the jet NHI cell
     (``configs/jet.json``) on band_chol and on host_lu, cold (a fallback
-    is counted and printed, and a run passes if it converges), and the
-    refinement trace of :func:`refine_trace` on armadillo-small NHC,
-    human NHI and jet NHI."""
+    is counted and printed, and a run passes if it converges), the human
+    ARAP bend (``human.json`` + ``human_bend_override.json``) on
+    band_chol, cold, and the refinement trace of :func:`refine_trace` on
+    armadillo-small NHC, human NHI and jet NHI."""
     t0 = time.perf_counter()
     stats = {}
     for solver in ("band_chol", "host_lu"):
@@ -1201,6 +1460,11 @@ def phase_records(torch):
             band_line(label, res, launches, per)
         stats[solver] = res.stat
     del res
+    res = run_deform(torch, "band_chol", HUMAN_BEND_CONFIGS,
+                     "human arap bend band_chol")[0]
+    stats["human_bend"] = res.stat
+    del res
+    torch.cuda.empty_cache()
     for label, configs in (("armadillo-small NHC", [CONFIG]),
                            ("human NHI", HUMAN_CONFIGS),
                            ("jet NHI", JET_CONFIGS)):
@@ -1286,8 +1550,8 @@ def phase_arap_kernels(torch, timing, verts_eq):
 
     # ---- K8c at the equilibrium ----
     u, s, w = K8a.svd_w(F)
-    data, E = K23.jac_asm_arap(asm, elems, u, s, w)
-    data_p, E_p = K23.jac_asm_arap_plain(asm, elems, u, s, w)
+    data, _, E = K23.jac_asm_arap(asm, elems, u, s, w)
+    data_p, _, E_p = K23.jac_asm_arap_plain(asm, elems, u, s, w)
     e_d, r_d = rel_err(data, data_p)
     e_e, r_e = rel_err(E, E_p)
     del data_p, E_p
@@ -1363,7 +1627,7 @@ def main(argv):
     build_s = phase_build()
     if records:
         stats = phase_records(torch)
-        write_out(out_dir, {"jet": stats})
+        write_out(out_dir, {"records": stats})
         faulthandler.cancel_dump_traceback_later()
         say("records done in %.2f s" % (time.perf_counter() - _T0))
         return 0
@@ -1376,23 +1640,26 @@ def main(argv):
     torch.cuda.empty_cache()
     res_nhi, launches_nhi, stats_nhi = phase_nhi(torch)
     torch.cuda.empty_cache()
+    launches_deform, stats_deform = phase_deform(torch)
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
     rows.update(phase_nhi_kernels(torch, timing, res_nhi))
+    rows.update(phase_deform_kernels(torch, timing))
     del timing, res_nhi
     torch.cuda.empty_cache()
     phase_parity()
     phase_profile(torch, band_solver)
     del band_solver
     kern = []
-    for name in KERNELS + ARAP_KERNELS + NHI_KERNELS:
+    for name in KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS:
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
-        # K1n and K3n
+        # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t
         runs = (launches_arap if name in ARAP_KERNELS else
-                launches_nhi if name in NHI_KERNELS else launches)
+                launches_nhi if name in NHI_KERNELS else
+                launches_deform if name in DEFORM_KERNELS else launches)
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=runs[name],
@@ -1401,7 +1668,8 @@ def main(argv):
             library_ms=r["library_ms"]))
     say("build_s=%.2f total_s=%.2f" % (build_s, time.perf_counter() - _T0))
     write_out(out_dir, {"band_chol": stat, "host_lu": stat_lu,
-                        "arap": stats_arap, "nhi": stats_nhi})
+                        "arap": stats_arap, "nhi": stats_nhi,
+                        "deform": stats_deform})
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

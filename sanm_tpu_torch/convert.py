@@ -10,6 +10,7 @@ This system has no model weights; this is its counterpart.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -51,8 +52,10 @@ def state_from_numpy(*, vertices, tets, fixed_mask, dm_inv, bias, x0,
     elems = Elements(dminv=f64(np.reshape(dm_inv, (T, 9))),
                      bias=f64(np.reshape(bias, (T, 9))),
                      mu=float(mu), lam=float(lam), kappa=float(kappa))
-    asm = DeviceAssembler(Lin, Lout, loc_rows, loc_cols, slot_pos,
-                          csr_rowidx, csr_cols, n_rows=n, n=n, device=dev)
+    csr = SimpleNamespace(slot_pos=slot_pos, csr_rowidx=csr_rowidx,
+                          csr_cols=csr_cols, t_slot_row=None, has_t=False)
+    asm = DeviceAssembler(Lin, Lout, loc_rows, loc_cols, n_rows=n, n=n,
+                          device=dev, csr=csr)
     return SliceState(
         vertices=np.asarray(vertices, np.float64),
         tets=np.asarray(tets, np.int32),

@@ -1,5 +1,6 @@
 // K3, K3n and K8c: element Jacobian of the stress and the condensed CSR
-// assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c) material.
+// assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c) material;
+// K3t: the assembled t column (grad_t) of the implicit continuation.
 //
 // Replaces jac_asm of sanm_tpu/solver/anm.py _hybrid_fns (:278-291):
 // batched_jacobian (sanm_tpu/taylor.py:611, forward-mode 9x9 Jacobian of
@@ -39,6 +40,22 @@
 // scatter-add into CSR is inverted on the host (nnz -> its slots,
 // ascending), so a second kernel sums each value in a fixed order without
 // atomics: the assembled matrix has the same bits on every run.
+//
+// K3t replaces the grad_t half of assemble_csr_elem
+// (sanm_tpu/solver/remap.py:366-372: a scatter-add of E's t-column slots
+// over t_slot_row, built at :273-277), which the implicit solver runs once
+// per restart.  Its scatter is inverted on the host too (row -> its
+// t-column slots, ascending), and the same segment-gather kernel as the
+// CSR values sums each row in that fixed order: grad_t enters the
+// expansion's first solve and with it Pade's accept/reject, which can flip
+// on the last bit.  It is its own launch after K3/K3n/K8c rather than
+// more rows of the CSR gather's grid: the launch costs a few microseconds
+// once per restart, the gravity path's entry points stay as they are,
+// and the pass can be held against its plain version and timed alone.
+// Bound on the H100: memory, and tiny.  At armadillo-small's bend (n =
+// 33,345 rows, 12,276 t-column slots in 837 rows) it reads the row
+// pointers, the slot indices and the E values they name and writes n
+// doubles: ~0.55 MB, 0.16 us at 3.35 TB/s, so the launch is its time.
 #include <cuda_runtime.h>
 
 #include "sanm_kernels.h"
@@ -240,15 +257,26 @@ __global__ void elem_stiffness_kernel(typename Jac::Params prm,
     }
 }
 
-__global__ void csr_gather_kernel(const double* __restrict__ E,
-                                  const int32_t* __restrict__ nz_ptr,
-                                  const int32_t* __restrict__ nz_slot,
-                                  double* __restrict__ data, int64_t nnz) {
+// out[z] = sum of E[slot[p]] for p in [ptr[z], ptr[z+1]), ascending: the
+// CSR values (ptr, slot = nz_ptr, nz_slot) and K3t's grad_t (t_ptr,
+// t_slot).
+__global__ void segment_gather_kernel(const double* __restrict__ E,
+                                      const int32_t* __restrict__ ptr,
+                                      const int32_t* __restrict__ slot,
+                                      double* __restrict__ out, int64_t m) {
     int64_t z = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (z >= nnz) return;
+    if (z >= m) return;
     double acc = 0.0;
-    for (int32_t p = nz_ptr[z]; p < nz_ptr[z + 1]; ++p) acc += E[nz_slot[p]];
-    data[z] = acc;
+    for (int32_t p = ptr[z]; p < ptr[z + 1]; ++p) acc += E[slot[p]];
+    out[z] = acc;
+}
+
+int segment_gather(const double* E, const int32_t* ptr, const int32_t* slot,
+                   double* out, int64_t m, cudaStream_t s) {
+    if (m > 0)
+        segment_gather_kernel<<<(unsigned)((m + kThreads - 1) / kThreads),
+                                kThreads, 0, s>>>(E, ptr, slot, out, m);
+    return (int)cudaGetLastError();
 }
 
 template <class Jac>
@@ -263,10 +291,7 @@ int jac_asm(const typename Jac::Params& prm, const double* Lout,
                                                           Dout, Din);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if (nnz > 0)
-        csr_gather_kernel<<<(unsigned)((nnz + kThreads - 1) / kThreads),
-                            kThreads, 0, s>>>(E, nz_ptr, nz_slot, data, nnz);
-    return (int)cudaGetLastError();
+    return segment_gather(E, nz_ptr, nz_slot, data, nnz, s);
 }
 
 }  // namespace
@@ -304,4 +329,11 @@ extern "C" int sanm_jac_asm_nhi(const double* gin0, const double* bias,
     return jac_asm<NHIJacobian>({gin0, bias, dminv, mu, kappa}, Lout, Lin,
                                 nz_ptr, nz_slot, E, data, B, Dout, Din, nnz,
                                 (cudaStream_t)stream);
+}
+
+extern "C" int sanm_grad_t(const double* E, const int32_t* t_ptr,
+                           const int32_t* t_slot, double* grad_t,
+                           int64_t n_rows, void* stream) {
+    return segment_gather(E, t_ptr, t_slot, grad_t, n_rows,
+                          (cudaStream_t)stream);
 }

@@ -118,6 +118,11 @@ int sanm_jac_asm_nhi(const double* gin0, const double* bias,
                      int64_t B, int Dout, int Din, int64_t nnz, double mu,
                      double kappa, void* stream);
 
+// K3t: grad_t[r] = sum of E's flat slots t_slot[t_ptr[r] : t_ptr[r+1]]
+// (the t column of the implicit continuation's Jacobian), r < n_rows.
+int sanm_grad_t(const double* E, const int32_t* t_ptr, const int32_t* t_slot,
+                double* grad_t, int64_t n_rows, void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

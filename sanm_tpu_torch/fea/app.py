@@ -1,18 +1,22 @@
-"""FEA application: config layering, the gravity task, the stat JSON.
+"""FEA application: config layering, the tasks, the stat JSON.
 
-Port of the ``gravity`` path of ``sanm_tpu/fea/app.py`` (reference
-``fea/main.cpp``): the CLI
+Port of ``sanm_tpu/fea/app.py`` (reference ``fea/main.cpp``): the CLI
 ``python -m sanm_tpu_torch.fea [--device cpu|cuda] <sys.json> <task.json>
 [override.json ...]`` merges positional JSON files left to right, runs
 the task named by ``func`` and writes the same OBJ and stat-JSON files,
 with the same keys, into the current directory.  The device defaults to
-the card.  The other tasks, the baselines, ``save_interm`` and inverse
-mode belong to later slices of the port and raise.
+the card.  The tasks: ``gravity`` and ``test_cuboid`` (equilibrium under
+a load, :func:`run_and_save`), ``mesh_twist`` and ``test_cuboid_twist``
+(prescribed boundary displacement by implicit continuation, then an
+order-6 refinement, :func:`run_with_vtx_delta`).  The baselines,
+``save_interm``, inverse mode and ``test_single_tet_inverse`` belong to
+a later slice of the port and raise.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..solver.anm import SOLVERS, ANMEqnSolver, EqnHyperParam
+from ..solver.anm import (SOLVERS, ANMEqnSolver, ANMImplicitSolver,
+                          EqnHyperParam, HyperParam, resolved_solver)
 from ..utils import SANMError, ScopedProfiler, Timer, sanm_assert
 from .material import EnergyModel, MaterialProperty
 from .mesh import TetrahedralMesh
@@ -42,6 +47,7 @@ def _warm_repeat_count():
 
 
 _total_nr_iter = [0]
+_total_solve_time = [0.0]
 
 
 # ----------------------------------------------------------------------------
@@ -71,10 +77,11 @@ def make_material_property(mconf, need_density=False) -> MaterialProperty:
     )
 
 
-def setup_solver_param(config):
-    """Reference ``setup_solver_param`` (``fea/main.cpp:105-119``), for
-    the equation solver."""
-    hp = EqnHyperParam()
+def setup_solver_param(config, eqn=False):
+    """Reference ``setup_solver_param`` (``fea/main.cpp:105-119``): the
+    implicit solver's parameters, or (``eqn=True``) the equation
+    solver's."""
+    hp = EqnHyperParam() if eqn else HyperParam()
     hp.order = int(config.get("order", 20))
     hp.xcoeff_l2_penalty = float(config.get("xcoeff_l2_penalty", 0.0))
     hp.use_pade = not config.get("disable_pade", False)
@@ -83,7 +90,8 @@ def setup_solver_param(config):
     if hp.solver not in SOLVERS:
         raise SANMError("solver %r is not ported yet (ported: %s)"
                         % (hp.solver, ", ".join(SOLVERS)))
-    hp.converge_rms = RMS_THRESH_FORCE_EQU
+    if eqn:
+        hp.converge_rms = RMS_THRESH_FORCE_EQU
     return hp
 
 
@@ -114,6 +122,40 @@ def run_anm_eqn(solver: ANMEqnSolver, progress=True):
     return solver.get_x()
 
 
+def run_anm_implicit(solver: ANMImplicitSolver, t_dest=1.0, progress=True):
+    """Reference ``run_anm`` for the implicit solver: restart until the
+    validated range reaches ``t_dest``; returns x(t_dest)."""
+    it = 0
+    while True:
+        if progress:
+            print(" %.2g" % solver.get_t_upper(), end="", flush=True)
+        if solver.get_t_upper() >= t_dest:
+            break
+        solver.update_approx()
+        it += 1
+        if it > 10000:
+            raise SANMError("implicit continuation stalled")
+    _total_nr_iter[0] += solver.get_nr_iter()
+    if progress:
+        print(" iter=%d" % solver.get_nr_iter())
+    return solver.eval(solver.solve_a(t_dest))[0]
+
+
+def _solver_stats(jstat, solvers, dev):
+    """The port's stat keys: the solver that ran the expansions of
+    ``solvers`` (``mixed`` after a fallback to host LU), the expansions
+    of each solver and the band factor's fallbacks, summed over
+    ``solvers``, and the device."""
+    exp = {k: sum(s.expansions[k] for s in solvers)
+           for k in solvers[0].expansions}
+    jstat["solver_resolved"] = resolved_solver(exp)
+    jstat["expansions"] = exp
+    jstat["band_fallbacks"] = {k: sum(s.band_fallbacks[k] for s in solvers)
+                               for k in solvers[0].band_fallbacks}
+    jstat["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu")
+
+
 class TaskResult:
     """Task return value: the deformed mesh + the stat dict that is also
     written next to the output OBJ (reference ``fea/main.cpp:276-296``),
@@ -123,6 +165,7 @@ class TaskResult:
         self.mesh = mesh
         self.stat = stat
         self.solver = solver
+        self.cold = None  # the first run's result under a warm re-run
 
 
 def relative_displacement(v0, v1):
@@ -175,13 +218,14 @@ def run_and_save(name, config, deformable: DeformableBody,
 
     iter_begin = _total_nr_iter[0]
     timer.reset().start()
-    hp = setup_solver_param(config)
+    hp = setup_solver_param(config, eqn=True)
     hp.solution_check_tol = 1e-3
     if progress:
         print("order=%d:" % hp.order, end="", flush=True)
     solver = ANMEqnSolver(model, model.x0(), f_load_sub, hp)
     xt = run_anm_eqn(solver, progress)
     jstat["time_solve"] = timer.stop().time()
+    _total_solve_time[0] += jstat["time_solve"]
     jstat["iter"] = _total_nr_iter[0] - iter_begin
     if os.environ.get("SANM_WARM_TIMING"):
         # warm re-solve reusing the device state and the host assembler
@@ -215,16 +259,10 @@ def run_and_save(name, config, deformable: DeformableBody,
     jstat["solver_threads"] = ncuda
     jstat["threads_semantics"] = "cuda_device_count"
     jstat["solver_backend"] = hp.solver
-    # the solver that really ran the expansions (``mixed`` after a
-    # fallback to host LU), the expansions of each and the band factor's
-    # fallbacks, cold and warm solves together
-    jstat["solver_resolved"] = solver.solver_resolved()
-    jstat["expansions"] = dict(solver.expansions)
-    jstat["band_fallbacks"] = dict(solver.band_fallbacks)
+    # cold and warm solves together
+    _solver_stats(jstat, [solver], dev)
     jstat["loop_resolved"] = "hybrid"
     jstat["loop_mode"] = "hybrid"
-    jstat["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                       else "cpu")
     res = _post_process(name, config, deformable, model, xt, f_load_sub,
                         jstat, save, True)
     res.solver = solver
@@ -353,8 +391,331 @@ def gravity(config, rootpath=".", device=None):
     )
 
 
+# ----------------------------------------------------------------------------
+# prescribed-displacement continuation
+# (reference run_with_vtx_delta, fea/main.cpp:436-582)
+# ----------------------------------------------------------------------------
+
+
+def run_with_vtx_delta(name, config, deformable: DeformableBody, vtx_delta,
+                       vtx_coord, require_refine: bool, refine_f_load=None,
+                       progress=True, device=None):
+    """Move the boundary by ``vtx_delta`` (V, 3) from ``vtx_coord`` (V, 3,
+    updated in place) by implicit continuation in t from 0 to 1, then,
+    when asked or when the force residual is above
+    :data:`RMS_THRESH_FORCE_EQU`, refine with an order-6 equation solve
+    under ``refine_f_load``.  Returns the stat dict."""
+    if config.get("baseline") is not None:
+        raise SANMError("the baselines are not ported yet")
+    if config.get("save_interm", False):
+        raise SANMError("save_interm is not ported yet")
+    dev = resolve_device(device)
+    if progress:
+        print("solving %s(delta) " % name, end="", flush=True)
+    jstat = {}
+    timer = Timer().start()
+    vtx_dst_boundary = deformable.mesh.vertices + vtx_delta
+    mask = deformable.coord_fixed_mask
+    em = energy_model_of(config)
+    model = deformable.make_forward(em, vtx_coord, vtx_delta, device=dev)
+
+    def eval_force_rms():
+        m = deformable.make_forward(em, vtx_coord, device=dev,
+                                    jacobian=False)
+        f = m.eval_force(m.x0())
+        return float(np.sqrt(np.mean(f * f)))
+
+    def eval_potential():
+        m = deformable.make_forward(em, vtx_coord, device=dev,
+                                    jacobian=False)
+        p = m.eval_potential(m.x0())
+        return -1.0 if p is None else p
+
+    iter_begin = _total_nr_iter[0]
+    time_prep = timer.stop().time()
+    timer.reset().start()
+    hp = setup_solver_param(config)
+    hp.solution_check_tol = 10.0  # high tolerance (fea/main.cpp:513)
+    if progress:
+        print("order=%d:" % hp.order, end="", flush=True)
+    solver = ANMImplicitSolver(model, model.x0(), 0.0, hp)
+    xt = run_anm_implicit(solver, 1.0, progress)
+    timer.stop()
+    if progress:
+        print("timing(sec): prep=%.3f solve=%.3f" % (time_prep, timer.time()))
+    vtx_coord[~mask] = np.asarray(xt).reshape(-1)
+    vtx_coord += vtx_delta
+
+    force_rms = eval_force_rms()
+    if progress:
+        print("force rms: %g" % force_rms)
+    require_refine = require_refine or force_rms >= RMS_THRESH_FORCE_EQU
+    iters_before_refine = _total_nr_iter[0]
+    solvers = [solver]
+    if require_refine:
+        # low-order error-correcting refinement (fea/main.cpp:554-574)
+        model2 = deformable.make_forward(em, vtx_coord, device=dev)
+        if refine_f_load is not None:
+            f_load_sub = model2.lt_inp.copy_vtx_values(refine_f_load)
+        else:
+            f_load_sub = np.zeros(model2.lt_inp.n_unknown_vtx)
+        hp2 = setup_solver_param(config, eqn=True)
+        hp2.order = 6
+        timer.start()
+        rsolver = ANMEqnSolver(model2, model2.x0(), f_load_sub, hp2)
+        if progress:
+            print("refine %s:" % name, end="", flush=True)
+        xt = run_anm_eqn(rsolver, progress)
+        timer.stop()
+        vtx_coord[~mask] = np.asarray(xt).reshape(-1)
+        solvers.append(rsolver)
+
+    vtx_coord[mask] = vtx_dst_boundary[mask]
+    _delta_stats(jstat, deformable, vtx_coord, eval_force_rms,
+                 eval_potential)
+    jstat["iter_tot"] = _total_nr_iter[0] - iter_begin
+    jstat["iter_deform"] = iters_before_refine - iter_begin
+    jstat["iter_refine"] = _total_nr_iter[0] - iters_before_refine
+    jstat["time"] = timer.time()
+    _total_solve_time[0] += jstat["time"]
+    jstat["pade"] = hp.use_pade
+    jstat["pade_log"] = getattr(solver, "pade_log", [])
+    _solver_stats(jstat, solvers, dev)
+    return jstat
+
+
+def _delta_stats(jstat, deformable, vtx_coord, eval_force_rms,
+                 eval_potential):
+    m = deformable.mesh
+    jstat["force_rms_recomp"] = eval_force_rms()
+    jstat["potential_recomp"] = eval_potential()
+    jstat["displacement"] = relative_displacement(m.vertices, vtx_coord)
+    jstat["nr_inverted"] = get_nr_inverted(m.tets, m.vertices, vtx_coord)
+    jstat["V"] = m.nr_vertices
+    jstat["F"] = m.nr_tet
+
+
+# ----------------------------------------------------------------------------
+# procedural cuboid tasks (reference fea/main.cpp:623-772)
+# ----------------------------------------------------------------------------
+
+
+def test_cuboid(config, rootpath=".", device=None):
+    """Reference ``test_cuboid`` (``fea/main.cpp:623-663``): a cuboid
+    fixed at x = 0 under a downward load on a bottom strip."""
+    dev = resolve_device(device)
+    nx, ny, nz = int(config["x"]), int(config["y"]), int(config["z"])
+    spacing = float(config["spacing"])
+    material = make_material_property(config["material"])
+    mesh = TetrahedralMesh.make_cuboid(nx, ny, nz, spacing)
+    body = DeformableBody(material, mesh)
+    vtx = mesh.vertices
+    body.coord_fixed_mask[vtx[:, 0] <= spacing / 2, :] = True
+    f_load_full = np.zeros((mesh.nr_vertices, 3))
+    sel = (vtx[:, 0] > (nx // 2 - 1) * spacing - spacing / 2) & (
+        vtx[:, 2] < spacing / 2)
+    f_load_full[sel, 2] = -50.0
+    inverse = bool(config.get("inverse", False))
+    return run_and_save("cuboid inverse" if inverse else "cuboid", config,
+                        body, inverse, f_load_full, device=dev)
+
+
+def _rot(ang, axes):
+    """The 3x3 rotation by ``ang`` radians in the plane of ``axes``."""
+    rmat = np.eye(3)
+    c, s = math.cos(ang), math.sin(ang)
+    i, j = axes
+    rmat[i, i], rmat[i, j], rmat[j, i], rmat[j, j] = c, -s, s, c
+    return rmat
+
+
+def test_cuboid_twist(config, rootpath=".", device=None):
+    """Reference ``test_cuboid_twist`` (``fea/main.cpp:665-772``):
+    incremental rotation (about x) of the right face, then bend steps
+    (rotation about z + shift) with refinement."""
+    dev = resolve_device(device)
+    nx, ny, nz = int(config["x"]), int(config["y"]), int(config["z"])
+    spacing = float(config["spacing"])
+    material = make_material_property(config["material"])
+    mesh = TetrahedralMesh.make_cuboid(nx, ny, nz, spacing)
+    print("cuboid twist: V=%d F=%d" % (mesh.nr_vertices, mesh.nr_tet))
+    body = DeformableBody(material, mesh)
+    x_thresh = spacing * (nx - 1.5)
+    vtx_cur = mesh.vertices.copy()
+    left = vtx_cur[:, 0] <= spacing / 2
+    right = vtx_cur[:, 0] >= x_thresh
+    body.coord_fixed_mask[left | right, :] = True
+    vtx_bnd_idx = np.nonzero(right)[0]
+    sanm_assert(len(vtx_bnd_idx) > 0)
+
+    vtx_delta = np.zeros_like(vtx_cur)
+    out_filename = config["out_filename"]
+    save_cnt = [0]
+
+    def save():
+        TetrahedralMesh(vtx_cur, mesh.tets, mesh.surface_vtx,
+                        mesh.surfaces).write_obj(
+            "%s-%d.obj" % (out_filename, save_cnt[0]))
+        save_cnt[0] += 1
+
+    last_stat = {}
+
+    def update_to_next(name, vtx_bnd_next, require_refine, cfg):
+        nonlocal last_stat
+        vtx_delta[:] = 0
+        vtx_delta[vtx_bnd_idx] = vtx_bnd_next - vtx_cur[vtx_bnd_idx]
+        last_stat = run_with_vtx_delta(name, cfg, body, vtx_delta, vtx_cur,
+                                       require_refine, device=dev)
+        save()
+
+    cfg_rot = dict(config, save_interm=False)
+    rotate_split = float(config.get("rotate_split", 90))
+    remain = float(config["rotate"])
+    finished = 0.0
+    save()
+    vtx_bnd_init = vtx_cur[vtx_bnd_idx].copy()
+    qcnt = 0
+    while remain > 1e-5:
+        rot = min(remain, rotate_split)
+        remain -= rot
+        finished += rot
+        nxt = vtx_bnd_init @ _rot(math.radians(finished), (1, 2)).T
+        nxt += vtx_bnd_init.mean(0) - nxt.mean(0)
+        update_to_next("rot%d(rem %.1f)" % (qcnt, remain), nxt, False,
+                       cfg_rot)
+        qcnt += 1
+
+    vtx_bnd_init = vtx_cur[vtx_bnd_idx].copy()
+    for bend in config["bend"]:
+        rmat = _rot(math.radians(float(bend["angle"])), (0, 1))
+        nxt = (vtx_bnd_init @ rmat.T
+               + np.asarray(bend["shift"], float) * spacing)
+        update_to_next("bend", nxt, True, config)
+
+    last_stat["V"] = mesh.nr_vertices
+    last_stat["F"] = mesh.nr_tet
+    save_json(out_filename + ".json", last_stat)
+    out_mesh = mesh.copy()
+    out_mesh.replace_vtx(vtx_cur)
+    return TaskResult(out_mesh, last_stat)
+
+
+def twist_setup(config, rootpath="."):
+    """Host set-up of the ``mesh_twist`` task: the body (mesh read and
+    resized; the surface vertices in the lowest ``ratio_lo`` and highest
+    ``ratio_hi`` of the mesh along ``axis`` fixed), the moved (top)
+    vertices and the mesh's extent along the axis; writes nothing.
+    Returns ``(body, vtx_bnd_idx, proj_dist)``."""
+    material = make_material_property(config["material"])
+    mesh_file = os.path.join(rootpath, config["mesh"])
+    mesh = TetrahedralMesh.from_tetgen_files(mesh_file)
+    if float(config.get("scale", 0)) > 0:
+        mesh.resize_inplace(float(config["scale"]))
+    print("mesh twist: V=%d F=%d" % (mesh.nr_vertices, mesh.nr_tet))
+    body = DeformableBody(material, mesh)
+    p = mesh.vertices @ np.asarray(config["axis"], float)
+    proj_dist = float(p.max() - p.min())
+    th0 = p.min() + (p.max() - p.min()) * float(config["ratio_lo"])
+    th1 = p.min() + (p.max() - p.min()) * (1 - float(config["ratio_hi"]))
+    include_int = bool(config.get("include_int_points", False))
+    surface = np.zeros(mesh.nr_vertices, bool)
+    sanm_assert(mesh.surface_vtx)
+    surface[list(mesh.surface_vtx)] = True
+    print("proj range: %g %g thr=%g,%g" % (p.min(), p.max(), th0, th1))
+    sel = ((p <= th0) | (p >= th1)) & (surface | include_int)
+    body.coord_fixed_mask[sel, :] = True
+    return body, np.nonzero(sel & (p >= th1))[0], proj_dist
+
+
+def twist_delta(config, vtx_cur, vtx_bnd_idx, proj_dist):
+    """``vtx_delta`` (V, 3): the moved vertices of ``vtx_cur`` taken
+    through the config's rotations and shifts (``transforms``, else the
+    config itself), zero elsewhere."""
+    vtx_bnd_next = vtx_cur[vtx_bnd_idx].copy()
+    for tc in config.get("transforms", [config]):
+        ax = [i for i in range(3) if i != int(tc.get("rot_axis", 2))]
+        rmat = _rot(math.radians(float(tc["angle"])), ax)
+        vtx_bnd_next = (vtx_bnd_next @ rmat.T
+                        + np.asarray(tc["shift"], float) * proj_dist)
+    vtx_delta = np.zeros_like(vtx_cur)
+    vtx_delta[vtx_bnd_idx] = vtx_bnd_next - vtx_cur[vtx_bnd_idx]
+    return vtx_delta
+
+
+def mesh_twist(config, rootpath=".", device=None):
+    """Reference ``mesh_twist`` (``fea/main.cpp:774-919``): the body of
+    :func:`twist_setup`, after an optional gravity sag
+    (``add_gravity``), follows its moved vertices
+    (:func:`twist_delta`) by :func:`run_with_vtx_delta`."""
+    dev = resolve_device(device)
+    body, vtx_bnd_idx, proj_dist = twist_setup(config, rootpath)
+    mesh = body.mesh
+    out_filename = config["out_filename"]
+    fixed_vid = set(np.nonzero(body.coord_fixed_mask[:, 0])[0].tolist())
+    mesh.write_obj(out_filename + "-orig.obj")
+    mesh.write_obj(out_filename + "-boundary.obj", fixed_vid)
+
+    f_load_full = None
+    if config.get("add_gravity", False):
+        g_acc = np.asarray(config["g"], float)
+        f_load_full, tot = _gravity_load(mesh, body.material, g_acc)
+        print("add gravity=%.3f" % tot)
+        mesh_deformed = run_and_save(
+            "gravity_init", dict(config, save_interm=False), body, False,
+            f_load_full, save=False, device=dev).mesh
+        mesh_deformed.write_obj(out_filename + "-gravity.obj")
+        vtx_cur = mesh_deformed.vertices.copy()
+    else:
+        vtx_cur = mesh.vertices.copy()
+    vtx_delta = twist_delta(config, vtx_cur, vtx_bnd_idx, proj_dist)
+
+    mesh_copy = mesh.copy()
+    mesh_copy.replace_vtx(vtx_cur + vtx_delta)
+    mesh_copy.write_obj(out_filename + "-boundary-dst.obj", fixed_vid)
+
+    stat = run_with_vtx_delta("mesh_twist", config, body, vtx_delta, vtx_cur,
+                              False, f_load_full, device=dev)
+    mesh.replace_vtx(vtx_cur)
+    mesh.write_obj(out_filename + ".obj")
+    save_json(out_filename + ".json", stat)
+    if "out_surface_vtx" in config:
+        mesh.write_surface_vtx(config["out_surface_vtx"])
+    return TaskResult(mesh, stat)
+
+
+def _with_warm_rerun(fn):
+    """Warm-timing wrapper of the continuation tasks (``mesh_twist``,
+    ``test_cuboid_twist``), whose solvers are rebuilt for every
+    transform step: under ``SANM_WARM_TIMING`` the whole task runs a
+    second time in the same process (kernels built, caches warm), and
+    the re-run's result is returned, with ``time_solve_warm`` (the solve
+    timers of the re-run) and ``time_task_warm`` (its wall time) in its
+    stat; the first run's result is kept as its ``cold`` attribute."""
+
+    def wrapped(config, rootpath=".", device=None):
+        res = fn(config, rootpath, device=device)
+        if os.environ.get("SANM_WARM_TIMING"):
+            cold = res
+            solve_begin = _total_solve_time[0]
+            t = Timer().start()
+            res = fn(config, rootpath, device=device)
+            wall = t.stop().time()
+            res.stat["time_solve_warm"] = _total_solve_time[0] - solve_begin
+            res.stat["time_task_warm"] = wall
+            save_json(config["out_filename"] + ".json", res.stat)
+            res.cold = cold
+        return res
+
+    wrapped.__name__ = fn.__name__
+    wrapped.__doc__ = fn.__doc__
+    return wrapped
+
+
 TASKS = {
+    "test_cuboid": test_cuboid,
+    "test_cuboid_twist": _with_warm_rerun(test_cuboid_twist),
     "gravity": gravity,
+    "mesh_twist": _with_warm_rerun(mesh_twist),
 }
 
 

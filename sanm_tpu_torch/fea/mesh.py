@@ -241,33 +241,28 @@ class TetrahedralMesh:
                 )
 
     def _write_obj_tets(self, path, filter_set):
-        vid_map = {}
-        lines_v = []
-        for i in range(self.nr_vertices):
-            if filter_set is None or i in filter_set:
-                vid_map[i] = len(vid_map)
-                lines_v.append("v %g %g %g\n" % tuple(self.vertices[i]))
-        lines_f = []
-
-        def facet(a, b, c):
-            if filter_set is not None:
-                if a not in filter_set or b not in filter_set or c not in filter_set:
-                    return
-                a, b, c = vid_map[a], vid_map[b], vid_map[c]
-            lines_f.append("f %d %d %d\n" % (a + 1, b + 1, c + 1))
-
+        """The faces of every tet, oriented outward, in tet order (four
+        per tet); with ``filter_set``, only the faces whose three
+        vertices are in it, numbered over those vertices."""
         V = self.vertices
-        for i0, i1, i2, i3 in self.tets:
-            v0 = V[i0]
-            if np.dot(V[i1] - v0, np.cross(V[i2] - v0, V[i3] - v0)) > 0:
-                i1, i2 = i2, i1
-            facet(i0, i1, i2)
-            facet(i1, i3, i2)
-            facet(i1, i0, i3)
-            facet(i0, i2, i3)
+        keep = np.ones(self.nr_vertices, bool)
+        if filter_set is not None:
+            keep[:] = False
+            keep[list(filter_set)] = True
+        vid = np.cumsum(keep) - 1
+        t = np.asarray(self.tets, np.int64).copy()
+        d1, d2, d3 = (V[t[:, k]] - V[t[:, 0]] for k in (1, 2, 3))
+        flip = np.einsum("ti,ti->t", d1, np.cross(d2, d3)) > 0
+        t[flip, 1], t[flip, 2] = t[flip, 2], t[flip, 1].copy()
+        i0, i1, i2, i3 = t.T
+        faces = np.stack([np.stack(f, 1) for f in (
+            (i0, i1, i2), (i1, i3, i2), (i1, i0, i3), (i0, i2, i3))], 1)
+        faces = faces.reshape(-1, 3)
+        faces = faces[keep[faces].all(1)]
         with open(path, "w") as fo:
-            fo.writelines(lines_v)
-            fo.writelines(lines_f)
+            fo.writelines("v %g %g %g\n" % tuple(v) for v in V[keep])
+            fo.writelines("f %d %d %d\n" % tuple(f) for f in
+                          (vid[faces] + 1).tolist())
 
     def write_surface_vtx(self, path):
         """Write surface vertex coordinates; the surface vertex numbers

@@ -2,10 +2,11 @@
 
 Port of ``sanm_tpu/fea/model.py`` (reference ``DeformableBody``,
 ``fea/mesh_template.h:163-237``), forward model only: the unknowns are
-the deformed free vertex coordinates; the graph maps remapped shape
-matrices Ds to the first Piola-Kirchhoff stress P(F) with
-F = (g + bias) Dm^-1; the output remap (rest-shape normals) turns P into
-nodal forces.  The model lives on one device: its remaps run through
+the deformed free vertex coordinates (and, with a ``vtx_delta``, the
+continuation parameter t of the implicit solver); the graph maps
+remapped shape matrices Ds to the first Piola-Kirchhoff stress P(F)
+with F = (g + bias) Dm^-1; the output remap (rest-shape normals) turns
+P into nodal forces.  The model lives on one device: its remaps run through
 the K2 kernels (``solver/assemble.py``) and the stress in f64 torch
 (ARAP's SVD-W through K8a).  It hands the ANM driver its material's
 series and Jacobian assembly (:data:`MATERIAL_KERNELS`).
@@ -13,6 +14,7 @@ series and Jacobian assembly (:data:`MATERIAL_KERNELS`).
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,20 +30,21 @@ from ..solver.assemble import (DeviceAssembler, jac_asm, jac_asm_arap,
                                jac_asm_nhi)
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
-from .material import EnergyModel, MaterialProperty, pk1
+from .material import (EnergyModel, MaterialProperty,
+                       elastic_potential_density, pk1)
 from .mesh import TetrahedralMesh
 from .remap import ForceOutputRemap, ShapeMatRemap
 
 
 def _jac_asm_arap(asm, elems, gin0):
-    """K8a's SVD-W of F at ``gin0``, then K8c."""
+    """K8a's SVD-W of F at ``gin0``, then K8c (and K3t)."""
     return jac_asm_arap(asm, elems,
                         *svd_w(elems.deformation_gradient(gin0)))
 
 
 #: per ported energy model, its series class (K1, K1n, K8b) and its
-#: Jacobian assembly ``(asm, elems, gin0) -> (data, E)`` (K3, K3n,
-#: K8a + K8c)
+#: Jacobian assembly ``(asm, elems, gin0) -> (data, grad_t, E)`` (K3,
+#: K3n, K8a + K8c; each followed by K3t where the plan has a t column)
 MATERIAL_KERNELS = {
     EnergyModel.NEOHOOKEAN_C: (NHCSeries, jac_asm),
     EnergyModel.NEOHOOKEAN_I: (NHISeries, jac_asm_nhi),
@@ -64,6 +67,7 @@ class ElasticForceModel:
     lt_out: ForceOutputRemap
     asm: DeviceAssembler
     elems: Elements
+    vols: torch.Tensor  # (B,) rest volumes
 
     @property
     def device(self):
@@ -83,17 +87,30 @@ class ElasticForceModel:
         return MATERIAL_KERNELS[self.energy_model][0](self.elems, order)
 
     def jac_asm(self, gin0):
-        """``(data, E)``: the CSR values and the condensed element
+        """``(data, grad_t, E)``: the CSR values, the assembled t column
+        (None without a ``vtx_delta``) and the condensed element
         stiffness of the material's Jacobian at ``gin0``
         (:data:`MATERIAL_KERNELS`)."""
+        if not self.asm.jacobian:
+            raise SANMError("a force-only model has no Jacobian plan")
         return MATERIAL_KERNELS[self.energy_model][1](self.asm, self.elems,
                                                       gin0)
 
     def eval_force(self, x):
-        """Nodal force (n,) at unknown vector x, evaluated in f64 on the
+        """Nodal force (n,) at unknown vector x ((n + 1,) with the t
+        entry for a model with a ``vtx_delta``), evaluated in f64 on the
         model's device; returned as NumPy."""
         gin = self.asm.apply_in(np.asarray(x).reshape(-1))
         return self.asm.apply_out(self.stress(gin)).cpu().numpy()
+
+    def eval_potential(self, x):
+        """The elastic energy sum_e W(F_e) vol_e at x, as a float; None
+        for a material without a potential density (NHC, NHI: only ARAP
+        has one, as in the JAX package)."""
+        F = self.elems.deformation_gradient(
+            self.asm.apply_in(np.asarray(x).reshape(-1)))
+        w = elastic_potential_density(self.energy_model, self.material, F, 3)
+        return None if w is None else float((w * self.vols).sum())
 
 
 class DeformableBody:
@@ -103,19 +120,37 @@ class DeformableBody:
         self.material = material
         self.mesh = mesh
         self.coord_fixed_mask = np.zeros((mesh.nr_vertices, 3), bool)
+        self._lt_out = (None, None)  # (key, ForceOutputRemap)
 
-    def make_forward(self, energy_model: EnergyModel,
-                     device=None) -> ElasticForceModel:
+    def _force_output_remap(self, lt_inp):
+        """The output remap: it depends on the fixed mask and the rest
+        mesh only, so the deform task's five models (the continuation,
+        two force checks, the potential, the refinement) share one."""
+        key = hashlib.sha1(self.coord_fixed_mask.tobytes()
+                           + self.mesh.vertices.tobytes()).digest()
+        if self._lt_out[0] != key:
+            self._lt_out = (key, ForceOutputRemap(lt_inp))
+        return self._lt_out[1]
+
+    def make_forward(self, energy_model: EnergyModel, init_vtx_coord=None,
+                     vtx_delta=None, device=None,
+                     jacobian=True) -> ElasticForceModel:
         """Forward model (reference ``make_forward``,
-        ``fea/mesh_template.h:191-219``) on ``device`` (default: the
-        card; see :func:`sanm_tpu_torch.resolve_device`)."""
+        ``fea/mesh_template.h:191-219``) from the vertex coordinates
+        ``init_vtx_coord`` (default: the mesh's), with the implicit
+        solver's t column when ``vtx_delta`` (V, 3) is given, on
+        ``device`` (default: the card; see
+        :func:`sanm_tpu_torch.resolve_device`).  ``jacobian=False`` makes
+        a force-only model, which evaluates forces and the potential and
+        skips the Jacobian's CSR plan (about half of the host set-up)."""
         if energy_model not in PORTED:
             raise SANMError("energy model %s is not ported yet (ported: %s)"
                             % (energy_model.value,
                                ", ".join(m.value for m in PORTED)))
         dev = resolve_device(device)
-        lt_inp = ShapeMatRemap(self.mesh, self.coord_fixed_mask)
-        lt_out = ForceOutputRemap(lt_inp)
+        lt_inp = ShapeMatRemap(self.mesh, self.coord_fixed_mask,
+                               init_vtx_coord, vtx_delta)
+        lt_out = self._force_output_remap(lt_inp)
         T = self.mesh.nr_tet
         plan = SparseAssembler(lt_out.remap, lt_inp.remap, T, 9, 9,
                                lt_inp.n_unknown_vtx)
@@ -129,7 +164,8 @@ class DeformableBody:
         )
         return ElasticForceModel(
             energy_model, self.material, lt_inp, lt_out,
-            DeviceAssembler.from_plan(plan, dev), elems,
+            DeviceAssembler.from_plan(plan, dev, jacobian), elems,
+            torch.as_tensor(self.mesh.tet_volumes).to(dev),
         )
 
     @staticmethod

@@ -6,7 +6,8 @@ NumPy numbering of its pure-Python branch, written with array
 operations instead of per-tet loops:
 
 * :class:`ShapeMatRemap` maps the flat unknown vector (free vertex
-  coordinates) to the per-tet shape matrices Ds (T, 3, 3), with fixed
+  coordinates, plus the continuation parameter t when a ``vtx_delta``
+  is given) to the per-tet shape matrices Ds (T, 3, 3), with fixed
   coordinates folded into a constant bias;
 * :class:`ForceOutputRemap` maps per-tet stress tensors to the
   per-unknown nodal force: f[(v,c)] = sum over adjacent tets e of
@@ -20,21 +21,19 @@ from typing import Optional
 import numpy as np
 
 from ..solver.remap import LinearRemap
-from ..utils import SANMError
 
 
 class ShapeMatRemap:
     """``fixed_mask``: (V, 3) bool, True = coordinate is fixed (not an
     unknown).  ``init_vtx_coord``: starting coordinates (defaults to the
-    mesh's).  A ``vtx_delta`` (implicit continuation) belongs to a later
-    slice of the port and raises."""
+    mesh's).  ``vtx_delta`` (V, 3): when given, each output entry gains
+    the coefficient ``delta[vi, r] - delta[v0, r]`` on the trailing
+    unknown t (index n), where it is nonzero (implicit continuation),
+    and the input has n + 1 entries."""
 
     def __init__(self, mesh, fixed_mask,
                  init_vtx_coord: Optional[np.ndarray] = None,
                  vtx_delta: Optional[np.ndarray] = None):
-        if vtx_delta is not None:
-            raise SANMError("vtx_delta (implicit continuation) is not "
-                            "ported yet")
         self.mesh = mesh
         dim = 3
         V = mesh.nr_vertices
@@ -68,19 +67,31 @@ class ShapeMatRemap:
         self.bias = bias
 
         both = f0 & fm
+        self.has_delta = vtx_delta is not None
+        dt = np.zeros((T, dim, dim))
+        if self.has_delta:
+            delta = np.asarray(vtx_delta, np.float64).reshape(V, dim)
+            dt = (np.transpose(delta[tets[:, 1:]], (0, 2, 1))
+                  - delta[tets[:, 0]][:, :, None])
         width = 2 if both.any() else 1
+        t_slot = width if (dt != 0).any() else None
+        if t_slot is not None:
+            width += 1  # the t entry, dead where its coefficient is 0
         idx = np.zeros((T, dim, dim, width), np.int64)
         coef = np.zeros((T, dim, dim, width))
         # first slot: the v0 entry if free, else the vm entry
         idx[..., 0] = np.where(f0, u0, np.where(fm, um, 0))
         coef[..., 0] = np.where(f0, -1.0, np.where(fm, 1.0, 0.0))
-        if width == 2:
+        if both.any():
             idx[..., 1] = np.where(both, um, 0)
             coef[..., 1] = np.where(both, 1.0, 0.0)
+        if t_slot is not None:
+            idx[..., t_slot] = np.where(dt != 0, n_unknown, 0)
+            coef[..., t_slot] = dt
         self.remap = LinearRemap(
             idx.reshape(T * dim * dim, width),
             coef.reshape(T * dim * dim, width),
-            n_unknown, (T, dim, dim),
+            n_unknown + self.has_delta, (T, dim, dim),
         )
 
     def copy_vtx_values(self, vtx_values):

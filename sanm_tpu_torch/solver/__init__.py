@@ -3,6 +3,7 @@ card's band Cholesky (port of ``sanm_tpu/solver``)."""
 
 from .anm import (  # noqa: F401
     ANMEqnSolver,
+    ANMImplicitSolver,
     ANMSolverVecScale,
     EqnHyperParam,
     HyperParam,

@@ -32,7 +32,11 @@ the (N+1, n+1) coefficient matrix.
 
 The model here is the forward model of
 :class:`~sanm_tpu_torch.fea.model.ElasticForceModel`; its f(x0) is
-evaluated in f64 on the model's device.
+evaluated in f64 on the model's device.  Two kinds of curve share the
+driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
+:class:`ANMEqnSolver` on top of it), where dH/dt is the vector v, and
+f(x, t) = f(x0, t0) (:class:`ANMImplicitSolver`), whose model reads t
+and whose dH/dt is the t column that K3t assembles with A.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from ..utils import (
     verbose_mode,
 )
 from .assemble import element_matvec
-from .band import BandPlan, DeviceBandCholSolver
+from .band import BandPlan, DeviceBandCholSolver, band_plan_for
 from .linear import HostSparseLU
 
 #: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``)
@@ -94,6 +98,14 @@ class EqnHyperParam(HyperParam):
     converge_rms: float = 1e-5
 
 
+def resolved_solver(expansions):
+    """The solver that ran the counted ``expansions`` ({solver: count}):
+    ``band_chol`` or ``host_lu``, ``mixed`` when both did (after a
+    fallback), None before the first."""
+    ran = [m for m, c in expansions.items() if c]
+    return ran[0] if len(ran) == 1 else ("mixed" if ran else None)
+
+
 class _ANMDriverBase:
     """Shared continuation machinery (reference ``ANMDriverHelper``)."""
 
@@ -132,18 +144,29 @@ class _ANMDriverBase:
         self._t_max = 0.0
         self._t_max_a = 0.0
 
+    #: whether the remap's input carries t (its last entry) and the
+    #: assembled t column is dH/dt (:class:`ANMImplicitSolver`)
+    is_implicit = False
+
     # -- subclass interface ---------------------------------------------
+    def prepare_inp(self, xt):
+        """Strip or keep the trailing t before remap_in (reference
+        ``prepare_inp``, ``libsanm/anm.h:173``)."""
+        return xt[: self.n]
+
     def on_fx0_computed(self, fx) -> bool:
         raise NotImplementedError
 
     def _gt_payload(self):
-        """dH/dt (VecScale: the vector v)."""
+        """dH/dt (VecScale: the vector v; implicit: None, the assembled t
+        column takes its place)."""
         raise NotImplementedError
 
     # -- device work -------------------------------------------------------
     def _eval_fx(self, xt):
-        """f(x) in f64 on the model's device, as NumPy."""
-        return self.model.eval_force(xt[: self.n])
+        """f(x) (implicit: f(x, t)) in f64 on the model's device, as
+        NumPy."""
+        return self.model.eval_force(self.prepare_inp(xt))
 
     def _order_step(self, k, xt_k):
         """Commit order k and return the assembled order-(k+1) bias
@@ -151,13 +174,18 @@ class _ANMDriverBase:
         gin = self.asm.apply_in(xt_k)
         return self.asm.apply_out(self._series.step(k, gin))
 
+    def _ncmp(self):
+        """The entries of the start point the factor depends on: x, and t
+        for the implicit solver, whose A and grad_t depend on t."""
+        return self.n + 1 if self.is_implicit else self.n
+
     def _fact_reusable(self, fact, xt0_np) -> bool:
         """Whether a cached factorization from a previous restart is
         close enough to the new start point to reuse."""
         if fact is None or self.hp.fact_reuse_rel_step <= 0:
             return False
         return float(
-            np.linalg.norm(xt0_np[: self.n] - fact["x0"])
+            np.linalg.norm(xt0_np[: self._ncmp()] - fact["x0"])
         ) <= self.hp.fact_reuse_rel_step * (
             float(np.linalg.norm(fact["x0"])) + 1e-30
         )
@@ -181,11 +209,9 @@ class _ANMDriverBase:
         return self.band_fallbacks["gate"] + self.band_fallbacks["checks"]
 
     def solver_resolved(self):
-        """The solver that ran the expansions so far: ``band_chol`` or
-        ``host_lu``, ``mixed`` when both did (after a fallback), None
-        before the first."""
-        ran = [m for m, c in self.expansions.items() if c]
-        return ran[0] if len(ran) == 1 else ("mixed" if ran else None)
+        """The solver that ran the expansions so far (see
+        :func:`resolved_solver`)."""
+        return resolved_solver(self.expansions)
 
     def _band_auto_ok(self):
         """Whether ``auto`` takes ``band_chol``: on the card only (the CPU
@@ -219,11 +245,11 @@ class _ANMDriverBase:
         return out
 
     def band_plan(self) -> BandPlan:
-        """The band solver's host plan, built once per solver (the
-        sparsity is topology-static)."""
+        """The band solver's host plan (the sparsity is topology-static,
+        so solvers of one pattern share it, :func:`band_plan_for`)."""
         if self._band_plan is None:
-            self._band_plan = BandPlan(self.asm.csr_rowidx,
-                                       self.asm.csr_cols, self.n)
+            self._band_plan = band_plan_for(self.asm.csr_rowidx,
+                                            self.asm.csr_cols, self.n)
         return self._band_plan
 
     def _factorize(self, mode, data, E):
@@ -263,12 +289,12 @@ class _ANMDriverBase:
         reuse = self._fact_reusable(fact, xt0_np)
         self._last_fact_reused = reuse
         with ScopedProfiler("build_sparse_coeff", block=True):
-            gin0 = asm.apply_in(xt0_np[:n])
+            gin0 = asm.apply_in(self.prepare_inp(xt0_np))
             if not reuse:
-                data, E = self.model.jac_asm(gin0)
+                data, gt_asm, E = self.model.jac_asm(gin0)
             self._series.start(gin0)
         if reuse:
-            solver = fact["solver"]
+            solver, gt_asm = fact["solver"], fact["gt"]
         else:
             self._fact = None  # free the old factor before the new one
             with ScopedProfiler("sparse_prep", block=True):
@@ -280,9 +306,13 @@ class _ANMDriverBase:
                     print("band_chol: indefinite stiffness; host-LU "
                           "fallback")
                 return self._expand(xt0_np, v_np, "host_lu")
-            self._fact = {"mode": mode, "x0": xt0_np[:n].copy(),
-                          "solver": solver}
-        grad_t = torch.as_tensor(v_np, dtype=torch.float64).to(asm.device)
+            self._fact = {"mode": mode, "x0": xt0_np[: self._ncmp()].copy(),
+                          "solver": solver, "gt": gt_asm}
+        if self.is_implicit:
+            grad_t = gt_asm
+        else:
+            grad_t = torch.as_tensor(v_np, dtype=torch.float64).to(
+                asm.device)
         if mode == "band_chol":
             xgt, gate = solver.solve(grad_t, with_resid=True)
             gate = float(gate)
@@ -660,3 +690,45 @@ class ANMEqnSolver(ANMSolverVecScale):
         self._solver_override = None
         self.solve_expansion_coeffs()
         return self
+
+
+class ANMImplicitSolver(_ANMDriverBase):
+    """Solve f(x, t) = f(x0, t0) for the curve x(t), t increasing from
+    t0 (reference ``ANMImplicitSolver``, ``libsanm/anm.cpp:493-615``;
+    ``sanm_tpu/solver/anm.py:1754-1793``).  The model's remap reads t as
+    its last input (a model made with a ``vtx_delta``); the assembled t
+    column (K3t) is dH/dt."""
+
+    is_implicit = True
+
+    def __init__(self, model, x0, t0, hyper_param=None):
+        x0 = np.asarray(x0).reshape(-1)
+        super().__init__(model, x0.size, hyper_param)
+        sanm_assert(model.lt_inp.remap.inp_size == self.n + 1,
+                    "the implicit solver needs a model with a t column")
+        self._fx0 = None
+        self.init_xt0(x0, t0)
+        self.solve_expansion_coeffs()
+
+    def prepare_inp(self, xt):
+        return xt
+
+    def _gt_payload(self):
+        return None
+
+    def on_fx0_computed(self, fx) -> bool:
+        """f(x, t) must stay f(x0, t0) along the curve, to
+        ``solution_check_tol`` relative."""
+        if self._fx0 is None:
+            self._fx0 = fx.copy()
+        else:
+            scale = np.maximum(
+                np.maximum(np.abs(self._fx0), np.abs(fx)), 1.0)
+            err = float(np.max(np.abs(self._fx0 - fx) / scale))
+            if err > self.hp.solution_check_tol:
+                raise SANMNumericalError(
+                    "check f(x0,t0)=f(x,t) failed: rel err %g" % err)
+        return True
+
+    def fx0(self):
+        return self._fx0

@@ -9,17 +9,20 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   ``assemble_csr_elem``), once per restart, with the material's
   closed-form Jacobian: K3 for the NHC stress, K3n
   (:func:`jac_asm_nhi`) for NHI, K8c (:func:`jac_asm_arap`) for ARAP,
-  whose SVD-W of F runs through K8a first;
+  whose SVD-W of F runs through K8a first; each returns
+  ``(data, grad_t, E)``, where grad_t, the assembled t column of the
+  implicit continuation (None without one), is K3t :func:`grad_t`;
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
   (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
   stiffness E, for the refinement and the sanity residual of the band
   solve.
 
-The scatter-adds (``apply_out``, the CSR assembly, ``element_matvec``)
-are summed in gather form from host-built inverse maps, in a fixed order
-and without atomics (``csrc/remap.cu``, ``csrc/jac_asm.cu``).  Each wrapper launches
-its kernel for tensors on the card, runs its ``*_plain`` torch version
-for tensors on the CPU, and raises for anything else.
+The scatter-adds (``apply_out``, the CSR assembly, grad_t,
+``element_matvec``) are summed in gather form from host-built inverse
+maps, in a fixed order and without atomics (``csrc/remap.cu``,
+``csrc/jac_asm.cu``).  Each wrapper launches its kernel for tensors on
+the card, runs its ``*_plain`` torch version for tensors on the CPU, and
+raises for anything else.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .. import kernels
 from ..ops.elements import Elements
 from ..ops.svd_w import svd_w_jvp
 from ..utils import SANMError
-from .remap import inverse_maps
+from .remap import gather_map
 
 _f64 = torch.float64
 _i32 = torch.int32
@@ -41,47 +44,60 @@ class DeviceAssembler:
     """The assembler plan's arrays on one device, plus the inverse maps.
 
     ``Lin`` (B, idim, Din), ``Lout`` (B, Dout, odim), ``loc_cols``
-    (B, Din) with pad n+1, ``loc_rows`` (B, Dout) with pad n_rows,
-    ``slot_pos`` (B*Dout*Din,) with dump value nnz; ``csr_rowidx`` /
-    ``csr_cols`` stay on the host for SciPy."""
+    (B, Din) with pad n+1, ``loc_rows`` (B, Dout) with pad n_rows, and
+    the gather map of ``apply_out``, built here.  ``csr`` is the host CSR
+    side: an object with the attributes of
+    :data:`~sanm_tpu_torch.solver.remap.SparseAssembler.CSR_ATTRS`
+    (``slot_pos`` (B*Dout*Din,) with dump value nnz, ``csr_rowidx`` /
+    ``csr_cols``, ``t_slot_row``, ``has_t``), from which the Jacobian's
+    arrays are built (``csr_rowidx`` / ``csr_cols`` stay on the host for
+    SciPy); None makes a force-only assembler (``jacobian`` False), which
+    has the remaps alone."""
 
-    def __init__(self, Lin, Lout, loc_rows, loc_cols, slot_pos, csr_rowidx,
-                 csr_cols, n_rows, n, device, has_t=False):
-        if has_t:
-            raise SANMError("a t column in the assembly (implicit "
-                            "continuation) is not ported yet")
+    def __init__(self, Lin, Lout, loc_rows, loc_cols, n_rows, n, device,
+                 csr=None):
         dev = torch.device(device)
         self.device = dev
         self.B, self.idim, self.Din = Lin.shape
         self.Dout, self.odim = Lout.shape[1:]
         self.n, self.n_rows = int(n), int(n_rows)
-        self.nnz = len(csr_rowidx)
-        self.csr_rowidx = np.asarray(csr_rowidx, np.int32)
-        self.csr_cols = np.asarray(csr_cols, np.int32)
-        row_ptr, row_ent, nz_ptr, nz_slot = inverse_maps(
-            np.asarray(loc_rows), self.n_rows, np.asarray(slot_pos), self.nnz
-        )
+        loc_rows = np.asarray(loc_rows)
+        row_ptr, row_ent = gather_map(loc_rows, self.n_rows)
+        self.Lin = self._dev(Lin, _f64)
+        self.Lout = self._dev(Lout, _f64)
+        self.loc_cols = self._dev(loc_cols, _i32)
+        self.loc_rows = self._dev(loc_rows, _i32)
+        self.row_ptr = self._dev(row_ptr, _i32)
+        self.row_ent = self._dev(row_ent, _i32)
+        self.jacobian = csr is not None
+        if not self.jacobian:
+            return
+        self.nnz = len(csr.csr_rowidx)
+        self.csr_rowidx = np.asarray(csr.csr_rowidx, np.int32)
+        self.csr_cols = np.asarray(csr.csr_cols, np.int32)
+        slot_pos = np.asarray(csr.slot_pos)
+        nz_ptr, nz_slot = gather_map(slot_pos, self.nnz)
+        self.slot_pos = self._dev(slot_pos, _i32)
+        self.nz_ptr = self._dev(nz_ptr, _i32)
+        self.nz_slot = self._dev(nz_slot, _i32)
+        self.has_t = bool(csr.has_t)
+        self.t_slot_row = self.t_ptr = self.t_slot = None
+        if self.has_t:
+            t_ptr, t_slot = gather_map(csr.t_slot_row, self.n_rows)
+            self.t_slot_row = self._dev(csr.t_slot_row, _i32)
+            self.t_ptr = self._dev(t_ptr, _i32)
+            self.t_slot = self._dev(t_slot, _i32)
 
-        def dt(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(
-                device=dev, dtype=dtype).contiguous()
-
-        self.Lin = dt(Lin, _f64)
-        self.Lout = dt(Lout, _f64)
-        self.loc_cols = dt(loc_cols, _i32)
-        self.loc_rows = dt(loc_rows, _i32)
-        self.slot_pos = dt(slot_pos, _i32)
-        self.row_ptr = dt(row_ptr, _i32)
-        self.row_ent = dt(row_ent, _i32)
-        self.nz_ptr = dt(nz_ptr, _i32)
-        self.nz_slot = dt(nz_slot, _i32)
+    def _dev(self, a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype).contiguous()
 
     @classmethod
-    def from_plan(cls, plan, device):
-        """From a host :class:`~sanm_tpu_torch.solver.remap.SparseAssembler`."""
+    def from_plan(cls, plan, device, jacobian=True):
+        """From a host :class:`~sanm_tpu_torch.solver.remap.SparseAssembler`
+        (force-only unless ``jacobian``; then its CSR side is built)."""
         return cls(plan.Lin, plan.Lout, plan.loc_rows, plan.loc_cols,
-                   plan.slot_pos, plan.csr_rowidx, plan.csr_cols,
-                   plan.n_rows, plan.n, device, plan.has_t)
+                   plan.n_rows, plan.n, device, plan if jacobian else None)
 
     def pad_vector(self, xt):
         """The (n+2,) remap_in operand: the (n+1,) solver vector (t entry
@@ -193,6 +209,35 @@ def element_matvec_plain(asm: DeviceAssembler, E, x):
 
 
 # ---------------------------------------------------------------------------
+# K3t grad_t: the t column of the implicit continuation's Jacobian
+# ---------------------------------------------------------------------------
+
+
+def grad_t(asm: DeviceAssembler, E):
+    """K3t: grad_t (n_rows,), row r the sum of the condensed stiffness
+    E's (B, Dout, Din) t-column slots of that row, in ascending slot
+    order; None when the plan has no t column."""
+    if not asm.has_t:
+        return None
+    kernels.check(E, "E", (asm.B, asm.Dout, asm.Din), _f64)
+    if not kernels.on_card(E, asm.t_ptr, asm.t_slot):
+        return grad_t_plain(asm, E)
+    out = torch.empty((asm.n_rows,), dtype=_f64, device=E.device)
+    kernels.launch("grad_t", "sanm_grad_t", E.data_ptr(),
+                   asm.t_ptr.data_ptr(), asm.t_slot.data_ptr(),
+                   out.data_ptr(), asm.n_rows)
+    return out
+
+
+def grad_t_plain(asm: DeviceAssembler, E):
+    """Plain torch version of K3t: E's slots scatter-added over
+    ``t_slot_row`` (dump row n_rows), as ``assemble_csr_elem``."""
+    acc = torch.zeros(asm.n_rows + 1, dtype=_f64, device=E.device)
+    acc.index_add_(0, asm.t_slot_row.long(), E.reshape(-1))
+    return acc[: asm.n_rows].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Jacobian + CSR assembly: K3 (NHC), K3n (NHI) and K8c (ARAP)
 # ---------------------------------------------------------------------------
 
@@ -225,14 +270,14 @@ def _jac_asm_nh(asm, elems, gin0, counter, fn_name, c2, plain):
                    asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
                    E.data_ptr(), data.data_ptr(), asm.B, asm.Dout, asm.Din,
                    asm.nnz, float(elems.mu), float(c2))
-    return data, E
+    return data, grad_t(asm, E), E
 
 
 def jac_asm(asm: DeviceAssembler, elems: Elements, gin0):
     """K3: per-element Jacobian of the NHC stress P(g) at graph input
     ``gin0`` (B, 9), condensed stiffness E (B, Dout, Din) and the CSR
-    values (nnz,) over ``(asm.csr_rowidx, asm.csr_cols)``.  Returns
-    ``(data, E)``."""
+    values (nnz,) over ``(asm.csr_rowidx, asm.csr_cols)``, then K3t's
+    grad_t.  Returns ``(data, grad_t, E)``."""
     return _jac_asm_nh(asm, elems, gin0, "jac_asm", "sanm_jac_asm",
                        elems.lam, jac_asm_plain)
 
@@ -266,7 +311,7 @@ def jac_asm_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
                    asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
                    E.data_ptr(), data.data_ptr(), B, asm.Dout, asm.Din,
                    asm.nnz, float(elems.mu))
-    return data, E
+    return data, grad_t(asm, E), E
 
 
 def nhc_jacobian_plain(elems: Elements, gin0):
@@ -350,11 +395,13 @@ def arap_jacobian_plain(elems: Elements, u, s, w):
 
 
 def _assemble_plain(asm: DeviceAssembler, J):
-    """E = Lout J Lin and the CSR values, scatter-added (plain torch)."""
+    """E = Lout J Lin, the CSR values and grad_t, scatter-added (plain
+    torch, as ``assemble_csr_elem``)."""
     E = torch.einsum("bdp,bpq,bqe->bde", asm.Lout, J, asm.Lin).contiguous()
     acc = torch.zeros(asm.nnz + 1, dtype=_f64, device=J.device)
     acc.index_add_(0, asm.slot_pos.long(), E.reshape(-1))
-    return acc[: asm.nnz].contiguous(), E
+    gt = grad_t_plain(asm, E) if asm.has_t else None
+    return acc[: asm.nnz].contiguous(), gt, E
 
 
 def jac_asm_plain(asm: DeviceAssembler, elems: Elements, gin0):

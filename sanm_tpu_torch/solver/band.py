@@ -39,6 +39,8 @@ else.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -185,6 +187,23 @@ class BandPlan:
         s = self.s
         lo, hi = int(self.panel_off[j]), int(self.panel_off[j + 1])
         return panels[lo:hi].view(-1, s, s)
+
+
+_PLANS = {}  # the last pattern's plan (see band_plan_for)
+
+
+def band_plan_for(csr_rowidx, csr_cols, n: int) -> BandPlan:
+    """The :class:`BandPlan` of a sparsity pattern, kept for the last
+    pattern asked for: the solvers of one mesh and boundary (the deform
+    task's continuation and refinement, a warm task re-run) share it."""
+    rows = np.ascontiguousarray(csr_rowidx, np.int32)
+    cols = np.ascontiguousarray(csr_cols, np.int32)
+    key = (int(n), hashlib.sha1(rows.tobytes()).digest(),
+           hashlib.sha1(cols.tobytes()).digest())
+    if key not in _PLANS:
+        _PLANS.clear()
+        _PLANS[key] = BandPlan(rows, cols, n)
+    return _PLANS[key]
 
 
 def _kernel_block(plan):

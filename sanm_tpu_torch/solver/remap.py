@@ -2,10 +2,12 @@
 
 Port of the host (NumPy) half of ``sanm_tpu/solver/remap.py``:
 :class:`LinearRemap` (``:24-155``), ``_row_unique`` (``:157``) and the
-plan built by ``SparseAssembler.__init__`` (``:207-289``).  On top of
-that, :func:`inverse_maps` builds the maps that let the
-device kernels sum the two scatter-adds in gather form, in a fixed order
-and without atomics (see ``solver/assemble.py``).
+plan built by ``SparseAssembler.__init__`` (``:207-289``), the t column
+of the implicit continuation included.  On top of that,
+:func:`gather_map` inverts the three scatter-adds (``apply_out``, the
+CSR values and the t column) so that the device kernels sum them in
+gather form, in a fixed order and without atomics (see
+``solver/assemble.py``).
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def _row_unique(vals, pad):
     return uniq, loc, D
 
 
-def _gather_map(targets, n_targets):
+def gather_map(targets, n_targets):
     """Inverse of a scatter: for every target t the sources s with
     ``targets[s] == t``, in ascending s.  Sources aimed at ``n_targets``
     or beyond are dead.  Returns CSR-style (ptr (n_targets+1,), src)
@@ -114,9 +116,11 @@ class SparseAssembler:
         A[loc_rows[b, i], loc_cols[b, j]] += E[b, i, j]
 
     The arrays are computed exactly as ``sanm_tpu``'s
-    ``SparseAssembler.__init__`` computes them.  A t column (implicit
-    continuation) is recognised (``has_t``), but its assembly belongs to
-    the implicit slice and raises on the device side."""
+    ``SparseAssembler.__init__`` computes them: the condensed remaps
+    (``Lin``, ``Lout``, ``loc_rows``, ``loc_cols``) here, the CSR side
+    (:data:`CSR_ATTRS`, :func:`csr_plan`) at first use.  Contributions
+    in the t column (column n, implicit continuation) go to the grad_t
+    vector through ``t_slot_row`` instead of the CSR values."""
 
     def __init__(self, remap_out: LinearRemap, remap_in: LinearRemap,
                  B: int, odim: int, idim: int, n_unknown: int):
@@ -158,33 +162,53 @@ class SparseAssembler:
         self.loc_rows = loc_rows.astype(np.int32)  # (B, Dout), pad=n_rows
         self.loc_cols = loc_cols.astype(np.int32)  # (B, Din), pad=n+1
 
-        # ---- CSR structure over the (B, Dout, Din) element slots -------
-        rows = np.broadcast_to(
-            loc_rows[:, :, None], (B, Dout, Din)
-        ).reshape(-1)
-        cols = np.broadcast_to(
-            loc_cols[:, None, :], (B, Dout, Din)
-        ).reshape(-1)
-        dead = (rows == row_pad) | (cols == col_pad)
-        is_t = ~dead & (cols == n)
-        mat_slot = ~dead & ~is_t
-        keys = np.where(mat_slot, rows * (n + 2) + cols, -1)
-        uniq, inv = np.unique(keys, return_inverse=True)
-        offset = 1 if len(uniq) and uniq[0] == -1 else 0
-        self.nnz = len(uniq) - offset
-        uk = uniq[offset:]
-        self.csr_rowidx = (uk // (n + 2)).astype(np.int32)  # COO rows
-        self.csr_cols = (uk % (n + 2)).astype(np.int32)
-        # slot -> nnz position (dump slot nnz for dead/t)
-        self.slot_pos = np.where(
-            mat_slot, inv - offset, self.nnz
-        ).astype(np.int32)
-        self.has_t = bool(is_t.any())
+    #: the CSR side of the plan, built at first use (a force-only model
+    #: never builds it)
+    CSR_ATTRS = ("nnz", "csr_rowidx", "csr_cols", "slot_pos", "t_slot_row",
+                 "has_t")
+
+    def __getattr__(self, name):
+        if name in SparseAssembler.CSR_ATTRS:
+            self.__dict__.update(csr_plan(self.loc_rows, self.loc_cols,
+                                          self.n_rows, self.n))
+            return self.__dict__[name]
+        raise AttributeError(name)
 
     def _diag_nnz_pos(self):
         """``(pos, row)``: the CSR positions of the diagonal entries and
         their rows (``sanm_tpu/solver/remap.py:380-387``)."""
         return diag_nnz_pos(self.csr_rowidx, self.csr_cols)
+
+
+def csr_plan(loc_rows, loc_cols, n_rows, n):
+    """The CSR structure over the (B, Dout, Din) element slots, as
+    ``sanm_tpu``'s ``SparseAssembler.__init__`` computes it
+    (``:255-279``): ``nnz``; the COO ``csr_rowidx`` / ``csr_cols``;
+    ``slot_pos`` (slot -> value position, dump value nnz for dead and t
+    slots); ``t_slot_row`` (t-column slot -> its row, dump value
+    n_rows elsewhere) and ``has_t``."""
+    B, Dout = loc_rows.shape
+    Din = loc_cols.shape[1]
+    rows = np.broadcast_to(
+        loc_rows[:, :, None].astype(np.int64), (B, Dout, Din)).reshape(-1)
+    cols = np.broadcast_to(
+        loc_cols[:, None, :].astype(np.int64), (B, Dout, Din)).reshape(-1)
+    dead = (rows == n_rows) | (cols == n + 1)
+    is_t = ~dead & (cols == n)
+    mat_slot = ~dead & ~is_t
+    keys = np.where(mat_slot, rows * (n + 2) + cols, -1)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    offset = 1 if len(uniq) and uniq[0] == -1 else 0
+    nnz = len(uniq) - offset
+    uk = uniq[offset:]
+    return dict(
+        nnz=nnz,
+        csr_rowidx=(uk // (n + 2)).astype(np.int32),
+        csr_cols=(uk % (n + 2)).astype(np.int32),
+        slot_pos=np.where(mat_slot, inv - offset, nnz).astype(np.int32),
+        t_slot_row=np.where(is_t, rows, n_rows).astype(np.int32),
+        has_t=bool(is_t.any()),
+    )
 
 
 def diag_nnz_pos(csr_rowidx, csr_cols):
@@ -193,14 +217,3 @@ def diag_nnz_pos(csr_rowidx, csr_cols):
     rowidx = np.asarray(csr_rowidx)
     sel = np.nonzero(rowidx == np.asarray(csr_cols))[0]
     return sel.astype(np.int32), rowidx[sel].astype(np.int32)
-
-
-def inverse_maps(loc_rows, n_rows, slot_pos, nnz):
-    """Gather-form maps for the deterministic device sums:
-    ``(row_ptr, row_ent)``: output row r of ``apply_out`` sums the flat
-    (b, i) entries ``row_ent[row_ptr[r]:row_ptr[r+1]]``;
-    ``(nz_ptr, nz_slot)``: CSR value z sums the flat (b, i, j) slots
-    ``nz_slot[nz_ptr[z]:nz_ptr[z+1]]``.  Both in ascending order."""
-    row_ptr, row_ent = _gather_map(loc_rows, n_rows)
-    nz_ptr, nz_slot = _gather_map(slot_pos, nnz)
-    return row_ptr, row_ent, nz_ptr, nz_slot

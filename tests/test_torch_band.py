@@ -164,7 +164,7 @@ def test_band_factor_of_an_indefinite_state_is_not_ok():
     for amp, ok in ((2e-4, True), (2e-3, False)):
         x = model.x0() + np.random.default_rng(4).uniform(-amp, amp,
                                                           plan.n)
-        data, _ = jac_asm(st.asm, st.elems, st.asm.apply_in(x))
+        data, _, _ = jac_asm(st.asm, st.elems, st.asm.apply_in(x))
         for s in (64, 128):
             bp = pband.BandPlan(plan.csr_rowidx, plan.csr_cols, plan.n, s)
             band, _ = pband.band_assemble(bp, data)
@@ -217,7 +217,7 @@ def test_element_matvec_matches_jax():
     st = port_state(body, model, plan, f_sub)
     rng = np.random.default_rng(5)
     x0 = model.x0() + rng.uniform(-0.002, 0.002, model.x0().shape)
-    _, E = jac_asm(st.asm, st.elems, st.asm.apply_in(x0))
+    _, _, E = jac_asm(st.asm, st.elems, st.asm.apply_in(x0))
     for seed in (0, 1):
         x = np.random.default_rng(seed).standard_normal(plan.n)
         got = element_matvec(st.asm, E, torch.as_tensor(x))

@@ -52,8 +52,8 @@ def test_remaps_and_jacobian(models):
     b = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (g.asm.B, 9)))
     assert rel(g.asm.apply_out(b.cuda()), c.asm.apply_out(b)) <= TOL
-    data_g, E_g = K.jac_asm(g.asm, g.elems, gin_g)
-    data_c, E_c = K.jac_asm(c.asm, c.elems, gin_c)
+    data_g, _, E_g = K.jac_asm(g.asm, g.elems, gin_g)
+    data_c, _, E_c = K.jac_asm(c.asm, c.elems, gin_c)
     assert rel(E_g, E_c) <= TOL and rel(data_g, data_c) <= TOL
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["remap_in"] == n0["remap_in"] + 1
@@ -98,8 +98,8 @@ def band_systems(models):
 
     g, c = models["cuda"], models["cpu"]
     x = g.x0() + np.random.default_rng(4).uniform(-2e-4, 2e-4, g.asm.n)
-    data_g, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
-    data_c, _ = K.jac_asm(c.asm, c.elems, c.asm.apply_in(x))
+    data_g, _, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    data_c, _, _ = K.jac_asm(c.asm, c.elems, c.asm.apply_in(x))
     out = [(g.asm.csr_rowidx, g.asm.csr_cols, data_g, data_c,
             lambda v: K.element_matvec(g.asm, E_g, v), g.asm.n)]
     A = th.random_sparse_spd(800, 61, np.random.default_rng(3))
@@ -152,7 +152,7 @@ def test_band_factor_indefinite_state(models):
 
     g = models["cuda"]
     x = g.x0() + np.random.default_rng(4).uniform(-2e-3, 2e-3, g.asm.n)
-    data, _ = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    data, _, _ = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
     plan = K5.BandPlan(g.asm.csr_rowidx, g.asm.csr_cols, g.asm.n)
     band, _ = K5.band_assemble(plan, data)
     band_p = band.cpu()
@@ -166,7 +166,7 @@ def test_element_matvec(models):
 
     g, c = models["cuda"], models["cpu"]
     x = g.x0() + np.random.default_rng(6).uniform(-2e-3, 2e-3, g.asm.n)
-    _, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    _, _, E_g = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
     v = torch.as_tensor(np.random.default_rng(7).standard_normal(g.asm.n))
     n0 = kernels.LAUNCHES["element_matvec"]
     got = K.element_matvec(g.asm, E_g, v.cuda())
@@ -277,8 +277,8 @@ def test_arap_jacobian(arap_models):
     F = g.elems.deformation_gradient(g.asm.apply_in(x))
     u, s, w = svd_w(F)
     n0 = kernels.LAUNCHES["jac_asm_arap"]
-    data, E = K.jac_asm_arap(g.asm, g.elems, u, s, w)
-    data_p, E_p = K.jac_asm_arap_plain(g.asm, g.elems, u, s, w)
+    data, _, E = K.jac_asm_arap(g.asm, g.elems, u, s, w)
+    data_p, _, E_p = K.jac_asm_arap_plain(g.asm, g.elems, u, s, w)
     assert rel(E, E_p) <= ARAP_TOL["jac_asm_arap"]
     assert rel(data, data_p) <= ARAP_TOL["jac_asm_arap"]
     torch.cuda.synchronize()
@@ -341,10 +341,64 @@ def test_nhi_jacobian(nhi_models):
     x = g.x0() + np.random.default_rng(13).uniform(-2e-3, 2e-3, g.asm.n)
     gin = g.asm.apply_in(x)
     n0 = kernels.LAUNCHES["jac_asm_nhi"]
-    data, E = K.jac_asm_nhi(g.asm, g.elems, gin)
-    data_p, E_p = K.jac_asm_nhi_plain(g.asm, g.elems, gin)
+    data, _, E = K.jac_asm_nhi(g.asm, g.elems, gin)
+    data_p, _, E_p = K.jac_asm_nhi_plain(g.asm, g.elems, gin)
     assert rel(E, E_p) <= NHI_TOL["jac_asm_nhi"]
     assert rel(data, data_p) <= NHI_TOL["jac_asm_nhi"]
     assert g.jac_asm(gin)[0].shape == data.shape
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["jac_asm_nhi"] == n0 + 2
+
+
+# The deform slice: K3t (grad_t) for the three materials, and K2
+# remap_in, the Jacobians (K3, K3n, K8c) and K4 at Din = 13.  A far-face
+# delta alone keeps Din = 12 (an element that reads t has a fixed
+# vertex); a delta on every vertex, which the remap takes as well, gives
+# the elements with four free vertices a 13th column.
+@pytest.fixture(params=["neohookean_c", "neohookean_i", "arap"])
+def deform_models(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    h = 0.025
+    rng = np.random.default_rng(9)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = TetrahedralMesh.make_cuboid(6, 4, 4, h)
+        body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                              mesh)
+        vx = mesh.vertices[:, 0]
+        body.coord_fixed_mask[(vx <= h / 2) | (vx >= 4.5 * h), :] = True
+        if dev == "cuda":
+            delta = rng.uniform(-0.1, 0.1, mesh.vertices.shape) * h
+        out[dev] = body.make_forward(EnergyModel.from_name(request.param),
+                                     vtx_delta=delta, device=dev)
+    return out
+
+
+def test_deform_kernels(deform_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    g, c = deform_models["cuda"], deform_models["cpu"]
+    assert g.asm.Din == 13 and g.asm.has_t
+    xt = np.concatenate([g.x0(), [0.37]])
+    n0 = dict(kernels.LAUNCHES)
+    gin_g = K.remap_in(g.asm, g.asm.pad_vector(xt))
+    gin_c = K.remap_in_plain(c.asm, c.asm.pad_vector(xt))
+    assert rel(gin_g, gin_c) <= TOL
+    data_g, gt_g, E_g = g.jac_asm(gin_g)
+    data_c, gt_c, E_c = c.jac_asm(gin_c)
+    assert gt_g.shape == (g.asm.n_rows,) and float(gt_c.abs().max()) > 0
+    for a, b in ((data_g, data_c), (gt_g, gt_c), (E_g, E_c)):
+        assert rel(a, b) <= TOL
+    assert rel(K.grad_t(g.asm, E_g), K.grad_t_plain(c.asm, E_c)) <= TOL
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(g.asm.n))
+    assert rel(K.element_matvec(g.asm, E_g, x.cuda()),
+               K.element_matvec_plain(c.asm, E_c, x)) <= TOL
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["remap_in"] == n0["remap_in"] + 1
+    assert kernels.LAUNCHES["grad_t"] == n0["grad_t"] + 2
+    assert kernels.LAUNCHES["element_matvec"] == n0["element_matvec"] + 1

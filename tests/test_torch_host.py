@@ -146,8 +146,8 @@ def test_assembler_plan(mask_id, tmp_path):
     ieq(pa.csr_rowidx, ja.csr_rowidx)
     ieq(pa.csr_cols, ja.csr_cols)
     # the inverse maps reproduce both scatter-adds in gather form
-    row_ptr, row_ent, nz_ptr, nz_slot = psremap.inverse_maps(
-        pa.loc_rows, pa.n_rows, pa.slot_pos, pa.nnz)
+    row_ptr, row_ent = psremap.gather_map(pa.loc_rows, pa.n_rows)
+    nz_ptr, nz_slot = psremap.gather_map(pa.slot_pos, pa.nnz)
     rng = np.random.default_rng(1)
     vals = rng.standard_normal(pa.loc_rows.size)
     ref = np.zeros(pa.n_rows + 1)

@@ -67,7 +67,7 @@ def test_jac_asm_matches_assemble_csr_elem(models, perturb):
     J = batched_jacobian(lambda g: tfn(g), gin0)
     data_j, gt_j, E_j = plan.assemble_csr_elem(J)
     assert gt_j is None
-    data, E = jac_asm(st.asm, st.elems,
+    data, _, E = jac_asm(st.asm, st.elems,
                       remap_in(st.asm, st.asm.pad_vector(x)))
     assert E.shape == E_j.shape and data.shape == data_j.shape
     assert rel_err(E.numpy(), np.asarray(E_j)) <= TOL

@@ -150,7 +150,7 @@ def test_nhi_jacobian_matches_batched_jacobian(nhi_cuboid, perturb):
     gin = remap_in(st.asm, st.asm.pad_vector(x))
     Jp = nhi_jacobian_plain(st.elems, gin)
     assert rel_err(Jp.numpy(), np.asarray(J).reshape(Jp.shape)) <= JAC_TOL
-    data, E = jac_asm_nhi(st.asm, st.elems, gin)
+    data, _, E = jac_asm_nhi(st.asm, st.elems, gin)
     assert E.shape == E_j.shape and data.shape == data_j.shape
     assert rel_err(E.numpy(), np.asarray(E_j)) <= JAC_TOL
     assert rel_err(data.numpy(), np.asarray(data_j)) <= JAC_TOL
@@ -299,23 +299,32 @@ def test_cuboid_nhi_equilibrium_matches_jax(solver, fz):
         r["accepted"] for r in sj.pade_log]
 
 
-@pytest.mark.parametrize("configs, out_name, want_disp", [
-    (("bar.json",), "bar-i0-neohookean_i.json", 0.195388005722574),
+@pytest.mark.parametrize("configs, out_name, want_disp, solver", [
+    (("bar.json",), "bar-i0-neohookean_i.json", 0.195388005722574,
+     "host_lu"),
     (("bar.json", "override_neo_comp.json"), "bar-i0-neohookean_c.json",
-     0.195355607965),
-], ids=["nhi", "nhc"])
+     0.195355607965, "host_lu"),
+    (("bar.json", "override_neo_comp.json"), "bar-i0-neohookean_c.json",
+     0.195355607965, "band_chol"),
+], ids=["nhi", "nhc", "nhc-band_chol"])
 def test_bar_gravity_cli(tmp_path, monkeypatch, configs, out_name,
-                         want_disp):
+                         want_disp, solver):
     """``configs/bar.json`` (NHI, its own material) and bar NHC through
-    the port's CLI (host LU on the CPU) against the JAX package's gravity
-    task: 2 restarts, force-RMS <= 1e-10, the relative displacement
-    within 1e-9 relative of JAX's (which is ``want_disp`` to the digits
-    given)."""
-    _port_cli(tmp_path, *configs)
+    the port's CLI against the JAX package's gravity task: 2 restarts,
+    force-RMS <= 1e-10, the relative displacement within 1e-9 relative of
+    JAX's (which is ``want_disp`` to the digits given).  On host LU (what
+    ``auto`` takes on the CPU), and bar NHC also on the band factor's
+    plain versions, asked for by an override file."""
+    over = ()
+    if solver != "host_lu":
+        path = tmp_path / "override_solver.json"
+        path.write_text(json.dumps({"solver": solver}))
+        over = (str(path),)
+    _port_cli(tmp_path, *configs, *over)
     port = json.loads((tmp_path / out_name).read_text())
     jstat = _jax_gravity(tmp_path, monkeypatch, *configs).stat
     assert abs(jstat["displacement"] - want_disp) <= 1e-11
-    assert port["solver_resolved"] == "host_lu"
+    assert port["solver_resolved"] == solver
     assert port["iter"] == jstat["iter"] == 2
     assert port["force_rms_recomp"] <= RMS
     assert port["nr_inverted"] == 0

@@ -85,7 +85,7 @@ def test_entry_points_need_cuda_or_cpu():
     from sanm_tpu_torch import SANMError, resolve_device
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
                                     MaterialProperty, TetrahedralMesh)
-    from sanm_tpu_torch.fea.app import gravity
+    from sanm_tpu_torch.fea.app import TASKS, gravity
 
     with pytest.raises(SANMError):
         resolve_device()
@@ -102,6 +102,12 @@ def test_entry_points_need_cuda_or_cpu():
                              device="cpu").device.type == "cpu"
     with pytest.raises(SANMError):
         gravity({"material": {}}, ".")
+    # the deform tasks refuse before they read their configs
+    for name in ("mesh_twist", "test_cuboid_twist", "test_cuboid"):
+        with pytest.raises(SANMError):
+            TASKS[name]({"material": {}}, ".")
+        with pytest.raises(SANMError):
+            TASKS[name]({"material": {}}, ".", device="cuda")
 
 
 def test_wrappers_do_not_fall_back():
@@ -313,6 +319,47 @@ def test_nhi_wrappers_do_not_fall_back():
     assemble.jac_asm_nhi(asm, elems, gin0)
     model.jac_asm(gin0)
     assert isinstance(model.series(4), NHISeries)
+    assert kernels.LAUNCHES == before
+
+
+def test_grad_t_wrapper_does_not_fall_back():
+    """K3t grad_t raises on a meta tensor, a wrong dtype or shape and a
+    non-contiguous tensor; without a t column it returns None; on CPU
+    tensors it runs its plain version and counts no launch, also inside
+    the Jacobians that call it."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.solver import assemble
+
+    mesh = TetrahedralMesh.make_cuboid(3, 2, 2, 0.1)
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          mesh)
+    body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.05, :] = True
+    delta = np.zeros_like(mesh.vertices)
+    delta[mesh.vertices[:, 0] <= 0.05, 1] = 0.01
+    before = dict(kernels.LAUNCHES)
+    plain = body.make_forward(EnergyModel.NEOHOOKEAN_C, device="cpu")
+    E0 = torch.zeros(plain.asm.B, plain.asm.Dout, plain.asm.Din,
+                     dtype=torch.float64)
+    assert assemble.grad_t(plain.asm, E0) is None
+    for em in (EnergyModel.NEOHOOKEAN_C, EnergyModel.NEOHOOKEAN_I,
+               EnergyModel.ARAP):
+        model = body.make_forward(em, vtx_delta=delta, device="cpu")
+        asm = model.asm
+        E = torch.zeros(asm.B, asm.Dout, asm.Din, dtype=torch.float64)
+        with pytest.raises(SANMError):
+            assemble.grad_t(asm, E.to("meta"))
+        with pytest.raises(SANMError):  # wrong dtype
+            assemble.grad_t(asm, E.float())
+        with pytest.raises(SANMError):  # wrong shape
+            assemble.grad_t(asm, E[:, :, :-1])
+        with pytest.raises(SANMError):  # not contiguous
+            assemble.grad_t(asm, E.transpose(1, 2))
+        xt = np.concatenate([model.x0(), [0.5]])
+        data, gt, E = model.jac_asm(asm.apply_in(xt))
+        assert gt.shape == (asm.n_rows,) and float(gt.abs().max()) > 0
+        assert torch.equal(assemble.grad_t(asm, E), gt)
     assert kernels.LAUNCHES == before
 
 
