@@ -73,6 +73,24 @@ Phases, each timed:
 13. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
 
+14. inverse: ``gravity`` on ``configs/armadillo_small.json`` (NHC) and
+   ``configs/bob.json`` (NHI), each with ``override_inverse.json`` (the
+   rest-shape design of the reference protocol's two inverse cells), as
+   they are (``auto``, which takes host LU for the inverse model: its
+   Jacobian is not symmetric), cold: 1 restart, force-RMS <= 1e-10, no
+   inverted element, ``solver_resolved`` host_lu, the relative
+   displacement within 1e-9 relative of the JAX package's CPU value
+   (``INV_DISPLACEMENT``), K1i and K3i launched and no band kernel; an
+   explicit ``band_chol`` on the inverse model must raise;
+15. invcheck: ``FEA_INVCHECK=1`` on ``configs/bar.json`` (NHI): forward
+   on ``auto`` (band_chol on the card), then the result solved back in
+   inverse mode on host LU; the restored rest vertices within
+   ``INVCHECK_TOL`` of the original in norm;
+16. inverse kernels: K3i at the first restart (the given mesh) and at the
+   rest shape found, and K1i along that first restart (bias orders
+   2..20), of the armadillo (NHC) and bob (NHI) inverse runs, each
+   against its plain version, timed as in 5.
+
 ``python3 chip_smoke.py --records [--out DIR]`` instead runs only the
 build and :func:`phase_records`: ``configs/jet.json`` (NHI, 47,668 tets)
 on ``band_chol`` and on ``host_lu``, cold (restarts, force-RMS, the
@@ -137,6 +155,29 @@ DEFORM_RESTARTS = (2, 1)  # iter_deform, iter_refine
 # force-RMS 1.9e-15, RESULTS.md:247)
 HUMAN_BEND_CONFIGS = HUMAN_CONFIGS + [
     os.path.join(ROOT, "configs", "human_bend_override.json")]
+# the inverse cells: armadillo-small (NHC) and bob (NHI) with
+# override_inverse.json, as the reference protocol runs them
+INV_CONFIGS = {
+    cell: [os.path.join(ROOT, "configs", f), os.path.join(
+        ROOT, "configs", "override_inverse.json")]
+    for cell, f in (("armadillo", "armadillo_small.json"),
+                    ("bob", "bob.json"))}
+# the JAX package's relative displacement of these tasks on the CPU (f64,
+# host LU, 1 restart, force-RMS 6.29e-14 and 6.46e-14), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/<mesh>.json configs/override_inverse.json
+# (the stat JSON <out>-i1-<energy>.json); the card's must agree to 1e-9
+# relative
+INV_DISPLACEMENT = {"armadillo": 0.02004404485674439,
+                    "bob": 0.03516520364643996}
+INV_RESTARTS = 1
+# the material's K1i and K3i, per inverse cell
+INV_CELL_KERNELS = {"armadillo": ("inv_nhc_step", "jac_asm_inv"),
+                    "bob": ("inv_nhi_step", "jac_asm_inv_nhi")}
+BAR_CONFIGS = [os.path.join(ROOT, "configs", "bar.json")]
+# the FEA_INVCHECK round trip's restored rest vertices vs the original,
+# in norm (the TPU record reads 5.5e-12, RESULTS.md:429-437)
+INVCHECK_TOL = 1e-9
 # H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
 # TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -154,7 +195,8 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "nhc_step": 1e-11, "element_matvec": 1e-12, "band_assemble": 1e-14,
        "band_factor": 1e-10, "band_solve": 1e-12, "svd_w": 1e-12,
        "arap_step": 1e-11, "jac_asm_arap": 1e-12, "nhi_step": 1e-11,
-       "jac_asm_nhi": 1e-12, "grad_t": 1e-12}
+       "jac_asm_nhi": 1e-12, "grad_t": 1e-12, "inv_nhc_step": 1e-11,
+       "inv_nhi_step": 1e-11, "jac_asm_inv": 1e-12, "jac_asm_inv_nhi": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -171,6 +213,8 @@ KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
 ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
 NHI_KERNELS = ("nhi_step", "jac_asm_nhi")
 DEFORM_KERNELS = ("grad_t",)
+INV_KERNELS = ("inv_nhc_step", "inv_nhi_step", "jac_asm_inv",
+               "jac_asm_inv_nhi")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -186,6 +230,10 @@ REPLACES = {
     "nhi_step": "sanm_tpu/taylor_scan.py:543",
     "jac_asm_nhi": "sanm_tpu/taylor.py:611",
     "grad_t": "sanm_tpu/solver/remap.py:366",
+    "inv_nhc_step": "sanm_tpu/solver/anm.py:293",
+    "inv_nhi_step": "sanm_tpu/taylor_scan.py:543",
+    "jac_asm_inv": "sanm_tpu/solver/anm.py:278",
+    "jac_asm_inv_nhi": "sanm_tpu/taylor.py:611",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -202,6 +250,10 @@ SOURCES = {
     "nhi_step": "sanm_tpu_torch/csrc/nhi_series.cu",
     "jac_asm_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
     "grad_t": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "inv_nhc_step": "sanm_tpu_torch/csrc/inv_series.cu",
+    "inv_nhi_step": "sanm_tpu_torch/csrc/inv_series.cu",
+    "jac_asm_inv": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "jac_asm_inv_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -300,13 +352,16 @@ class Timing:
             total += s.elapsed_time(e)
         return total
 
-    def kernel_ms(self, fn, reps=10, warmup=2):
+    def kernel_ms(self, fn, reps=10, warmup=2, cover_cycles=None):
         """Device time of a kernel wrapper; fails if its host work was not
-        hidden behind the spin."""
-        t = self.ms(fn, reps, warmup)
-        require(self.host_ms < self.cover_ms,
+        hidden behind the spin (of ``cover_cycles``, default
+        ``COVER_CYCLES``)."""
+        t = self.ms(fn, reps, warmup, cover_cycles=cover_cycles)
+        cover = self.cover_ms * (cover_cycles or self.COVER_CYCLES) \
+            / self.COVER_CYCLES
+        require(self.host_ms < cover,
                 "host work of a timed launch (%.3f ms) not covered by the "
-                "spin (%.3f ms)" % (self.host_ms, self.cover_ms))
+                "spin (%.3f ms)" % (self.host_ms, cover))
         return t
 
     def graph_ms(self, fn, reps=10, setup=None):
@@ -564,8 +619,11 @@ def series_row(timing, label, model, f_load, series, kernel, plain, groups,
         r_h = max(rel_err(series.hist[k, sl], snap[k, sl])[1]
                   for sl in groups)
         worst, err_k = max(worst, r_b, r_h), max(err_k, e_b)
+        # a longer spin: these launches follow the restart's host solves,
+        # after which a launch's host work has been seen to stall for ~3 ms
         ms = timing.kernel_ms(lambda: kernel(hist_k, k, gin_k, elems,
-                                             series.bias_out), reps=5)
+                                             series.bias_out), reps=5,
+                              cover_cycles=3 * timing.COVER_CYCLES)
         pms = timing.ms(lambda: plain(snap, k, gin_k, elems, b_plain),
                         reps=2, warmup=1)
         bnd = bound_of(k)
@@ -878,13 +936,14 @@ def mesh_vertex_count(cfg):
 
 
 def run_gravity(torch, solver, configs=(CONFIG,), label=None,
-                allow_fallback=False, warm=True):
+                allow_fallback=False, warm=True, want=None):
     """``app.gravity`` on the task of the merged ``configs`` (default
     armadillo-small) with ``solver``, cold and (``warm``) one warm
     re-solve, with the profiler on and the launch counts set to 0 just
     before; returns the task result, the counts and the scope stats.
-    ``allow_fallback`` accepts a band solve that fell back to host LU
-    (``mixed``)."""
+    The solver that ran must be ``want`` (default ``solver``; ``auto``
+    names none); ``allow_fallback`` accepts a band solve that fell back
+    to host LU (``mixed``)."""
     from sanm_tpu_torch import kernels
     import numpy as np
 
@@ -932,9 +991,9 @@ def run_gravity(torch, solver, configs=(CONFIG,), label=None,
             and st["mesh_V"] == nv, "bad output mesh")
     require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
     require(st["nr_inverted"] == 0, "inverted elements")
-    ran = st["solver_resolved"]
-    require(ran == solver or (allow_fallback and ran == "mixed"),
-            "solver %s not taken (%s ran)" % (solver, ran))
+    ran, want = st["solver_resolved"], want or solver
+    require(ran == want or (allow_fallback and ran == "mixed"),
+            "solver %s not taken (%s ran)" % (want, ran))
     return res, launches, per
 
 
@@ -1596,6 +1655,178 @@ def phase_arap_kernels(torch, timing, verts_eq):
     return rows
 
 
+def phase_inverse(torch):
+    """The two inverse cells as they are (``auto``), cold: each must take
+    host LU, converge in the JAX package's restarts to its displacement,
+    and launch its material's K1i and K3i and no band kernel; an explicit
+    ``band_chol`` on the inverse model must raise.  Returns per cell the
+    result and the launch counts."""
+    from sanm_tpu_torch import SANMError
+    from sanm_tpu_torch.solver import ANMEqnSolver, EqnHyperParam
+
+    t0 = time.perf_counter()
+    out = {}
+    for cell, cfgs in INV_CONFIGS.items():
+        label = "inverse " + cell
+        res, launches, per = run_gravity(torch, "auto", cfgs, label,
+                                         warm=False, want="host_lu")
+        st = res.stat
+        say("%s: factor s/restart=%.4f (%d)  backsolve s/solve=%.5f (%d)  "
+            "step ms/order=%.4f (%d)  jac+start s/restart=%.4f (%d)  f(x0) "
+            "s=%.4f (%d)" % (
+                label, per["sparse_prep"][1], per["sparse_prep"][0],
+                per["sparse_solve"][1], per["sparse_solve"][0],
+                per["order_step"][1] * 1e3, per["order_step"][0],
+                per["build_sparse_coeff"][1], per["build_sparse_coeff"][0],
+                per["eval_fx0"][1], per["eval_fx0"][0]))
+        step, jac = INV_CELL_KERNELS[cell]
+        say("%s: K1i (%s) launches %d, K3i (%s) %d, K2 remap_in %d "
+            "remap_out %d" % (label, step, launches[step], jac,
+                              launches[jac], launches["remap_in"],
+                              launches["remap_out"]))
+        for name in (step, jac, "remap_in", "remap_out"):
+            require(launches[name] > 0, "kernel %s was not launched on the "
+                    "%s path" % (name, label))
+        for name in KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS:
+            if name not in ("remap_in", "remap_out"):
+                require(launches[name] == 0, "kernel %s ran on the %s path"
+                        % (name, label))
+        want = INV_DISPLACEMENT[cell]
+        rel = abs(st["displacement"] - want) / want
+        say("%s: restarts %d (JAX package on the CPU: %d); displacement "
+            "%.16g vs the JAX package's %.16g: rel diff %.3e (tol 1e-9)"
+            % (label, st["iter"], INV_RESTARTS, st["displacement"], want,
+               rel))
+        require(st["iter"] == INV_RESTARTS, "%s: %d restarts, the JAX "
+                "package takes %d" % (label, st["iter"], INV_RESTARTS))
+        require(rel <= 1e-9, "%s displacement differs from the JAX "
+                "package's" % label)
+        out[cell] = (res, launches)
+    model = out["armadillo"][0].solver.model
+    try:
+        ANMEqnSolver(model, model.x0(), torch.zeros(model.asm.n).numpy(),
+                     EqnHyperParam(order=4, solver="band_chol"))
+    except SANMError as e:
+        say("inverse: explicit band_chol raises: %s" % e)
+    else:
+        raise Fail("band_chol on the inverse model did not raise")
+    phase_done("inverse", t0)
+    return out
+
+
+def phase_invcheck(torch):
+    """``FEA_INVCHECK`` on bar NHI: forward on ``auto`` (the band factor),
+    then the result solved back in inverse mode (host LU); the restored
+    rest vertices must lie within ``INVCHECK_TOL`` of the original in
+    norm.  Returns the stat."""
+    t0 = time.perf_counter()
+    os.environ["FEA_INVCHECK"] = "1"
+    try:
+        res, launches, _ = run_gravity(torch, "auto", BAR_CONFIGS,
+                                       "invcheck bar", allow_fallback=True,
+                                       warm=False, want="band_chol")
+    finally:
+        os.environ.pop("FEA_INVCHECK", None)
+    st = res.stat
+    say("invcheck bar: forward %s, inverse %s; invcheck norm %.3e (tol "
+        "%.0e); launches nhi_step %d band_factor %d inv_nhi_step %d "
+        "jac_asm_inv_nhi %d" % (
+            st["solver_resolved"], st["invcheck_solver_resolved"],
+            st["invcheck_norm"], INVCHECK_TOL, launches["nhi_step"],
+            launches["band_factor"], launches["inv_nhi_step"],
+            launches["jac_asm_inv_nhi"]))
+    require(st["invcheck_solver_resolved"] == "host_lu",
+            "the inverse half of the round trip did not run on host LU")
+    for name in ("nhi_step", "inv_nhi_step", "jac_asm_nhi",
+                 "jac_asm_inv_nhi"):
+        require(launches[name] > 0, "kernel %s was not launched in the "
+                "round trip" % name)
+    require(st["invcheck_norm"] <= INVCHECK_TOL,
+            "the round trip does not restore the rest shape")
+    phase_done("invcheck", t0)
+    return st
+
+
+def inv_step_flops(k, mat):
+    """f64 operations per element of K1i (``mat`` "nhc" or "nhi") at
+    commit order k + bias k+1, counting only terms the data needs (not
+    the zero g_{k+1} terms)."""
+    def order_pass(m, zero):
+        ops = (36 * (m - 1 if zero else m + 1) + 9  # cofactor
+               + 6 * (m if zero else m + 1)  # det Dm
+               + 9 * (2 * m + 1)  # Q
+               + 36 * (m + 1))  # W
+        return ops + (3 * m + 3 if mat == "nhc" else 6 * m + 1)
+    m = k + 1
+    stress = 12 * (m + 1) + 120 + (2 * (m + 1) if mat == "nhc" else 0)
+    return order_pass(k, False) + order_pass(m, True) + stress
+
+
+def phase_inverse_kernels(torch, timing, runs):
+    """K3i and K1i against their plain versions on the model states of
+    the inverse runs ``runs`` (per cell the result and launch counts of
+    :func:`phase_inverse`)."""
+    from functools import partial
+
+    from sanm_tpu_torch.ops import inv_series as K1i
+    from sanm_tpu_torch.solver import assemble as K23
+
+    t0 = time.perf_counter()
+    rows = {}
+    report = reporter(rows)
+    for cell, (res, _) in runs.items():
+        model, f_load = res.solver.model, res.solver.eqn_y
+        asm, elems = model.asm, model.elems
+        B = asm.B
+        mat = "nhc" if cell == "armadillo" else "nhi"
+        step_name, jac_name = INV_CELL_KERNELS[cell]
+        jac = getattr(K23, jac_name)
+        jac_plain = getattr(K23, jac_name + "_plain")
+        say("inverse %s model: B=%d n=%d nnz=%d" % (cell, B, asm.n, asm.nnz))
+
+        # ---- K3i at the first restart (the given mesh) and at the rest
+        # shape found ----
+        x_rest = model.lt_inp.copy_vtx_values(res.mesh.vertices)
+        err = rel = 0.0
+        for x in (model.x0(), x_rest):
+            gin = K23.remap_in(asm, asm.pad_vector(x))
+            data, _, E = jac(asm, elems, gin)
+            data_p, _, E_p = jac_plain(asm, elems, gin)
+            for a, b in ((data, data_p), (E, E_p)):
+                e, r = rel_err(a, b)
+                err, rel = max(err, e), max(rel, r)
+            del data, E, data_p, E_p
+        gin = K23.remap_in(asm, asm.pad_vector(model.x0()))
+        data, _, E = jac(asm, elems, gin)
+        flops = B * (1300 + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
+        report(jac_name, err, rel,
+               timing.kernel_ms(lambda: jac(asm, elems, gin), reps=5),
+               timing.ms(lambda: jac_plain(asm, elems, gin), reps=2,
+                         warmup=1),
+               bound_ms(nbytes(gin, elems.bias, elems.ds, asm.Lout, asm.Lin,
+                               asm.nz_ptr, asm.nz_slot, E, data), flops),
+               extra="(error at the first restart and at the rest shape "
+               "found; times at the first restart)")
+        del data, E
+
+        # ---- K1i along the first restart from the given mesh: at k it
+        # reads the NC components of orders <= k, gin, Ds and writes order
+        # k's components and the bias ----
+        nc = K1i.NCOMP[mat]
+        cls = K1i.InvNHCSeries if mat == "nhc" else K1i.InvNHISeries
+        err_k, worst, ms_k, plain_k, bnd_k = series_row(
+            timing, "K1i " + cell, model, f_load, cls(elems, 20),
+            cls.step_fn, partial(K1i.inv_step_plain, mat), K1i.GROUPS[mat],
+            lambda h, k: h[: k + 2],
+            lambda k: bound_ms(8 * B * (nc * (k + 1) + 27),
+                               B * inv_step_flops(k, mat)))
+        report(step_name, err_k, worst, ms_k, plain_k, (bnd_k, "bytes"),
+               extra="(mean over the 19 per-order launches of one restart)")
+        torch.cuda.empty_cache()
+    phase_done("inverse kernels", t0)
+    return rows
+
+
 def write_out(out_dir, stats):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -1641,25 +1872,37 @@ def main(argv):
     res_nhi, launches_nhi, stats_nhi = phase_nhi(torch)
     torch.cuda.empty_cache()
     launches_deform, stats_deform = phase_deform(torch)
+    torch.cuda.empty_cache()
+    runs_inv = phase_inverse(torch)
+    stat_invcheck = phase_invcheck(torch)
+    torch.cuda.empty_cache()
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
     rows.update(phase_nhi_kernels(torch, timing, res_nhi))
     rows.update(phase_deform_kernels(torch, timing))
-    del timing, res_nhi
+    rows.update(phase_inverse_kernels(torch, timing, runs_inv))
+    launches_inv = {name: runs_inv[cell][1][name]
+                    for cell, names in INV_CELL_KERNELS.items()
+                    for name in names}
+    stats_inv = {cell: r.stat for cell, (r, _) in runs_inv.items()}
+    del timing, res_nhi, runs_inv
     torch.cuda.empty_cache()
     phase_parity()
     phase_profile(torch, band_solver)
     del band_solver
     kern = []
-    for name in KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS:
+    for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS
+                 + INV_KERNELS):
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
-        # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t
+        # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t,
+        # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i
         runs = (launches_arap if name in ARAP_KERNELS else
                 launches_nhi if name in NHI_KERNELS else
-                launches_deform if name in DEFORM_KERNELS else launches)
+                launches_deform if name in DEFORM_KERNELS else
+                launches_inv if name in INV_KERNELS else launches)
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=runs[name],
@@ -1669,7 +1912,8 @@ def main(argv):
     say("build_s=%.2f total_s=%.2f" % (build_s, time.perf_counter() - _T0))
     write_out(out_dir, {"band_chol": stat, "host_lu": stat_lu,
                         "arap": stats_arap, "nhi": stats_nhi,
-                        "deform": stats_deform})
+                        "deform": stats_deform, "inverse": stats_inv,
+                        "invcheck": stat_invcheck})
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

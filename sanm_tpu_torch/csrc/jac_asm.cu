@@ -1,5 +1,6 @@
-// K3, K3n and K8c: element Jacobian of the stress and the condensed CSR
-// assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c) material;
+// K3, K3n, K8c and K3i: element Jacobian of the stress and the condensed
+// CSR assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c)
+// material and for the inverse model's NHC and NHI Cauchy stress (K3i);
 // K3t: the assembled t column (grad_t) of the implicit continuation.
 //
 // Replaces jac_asm of sanm_tpu/solver/anm.py _hybrid_fns (:278-291):
@@ -35,6 +36,24 @@
 //         dF = e_m Dm^-1[n, :], A = U^T dF V = U[m, :]^T (Dm^-1 V)[n, :],
 //         X = clip_div(A - A^T, s_p + s_q), dW = (U X) V^T, V = W^T U,
 //         dP = mu (dF - dW).
+//   Inverse (K3i, K3i-nhi): the Cauchy stress of the inverse model's graph
+//         (sanm_tpu/fea/model.py:139-158), whose unknowns are the rest
+//         shape: Dm = g + bias, Y = Dm^-1, F = Ds Y with Ds constant;
+//         for dg = e_m e_n^T, dF = -F e_m Y[n, :] (dF_ij = -F_im Y_nj),
+//         y = Y_nm, b = F F^T, R = F Y^T, so
+//         db_ij = -F_im R_jn - R_in F_jm, dJ = -J y, dIc = -2 (F^T R)_mn.
+//     NHC: sigma = mu J^-1 b - (mu J^-1 + lam J^-1 log J^-1) I,
+//         dsigma_ij = mu J^-1 (y b_ij - F_im R_jn - R_in F_jm)
+//                     - J^-1 y (mu + lam (log J^-1 + 1)) d_ij.
+//     NHI: sigma = mu A b + ((-mu/3) A Ic + kap J - kap) I, A = J^(-5/3),
+//         dsigma_ij = mu A ((5/3) y b_ij - F_im R_jn - R_in F_jm)
+//                     + ((-mu/3) A ((5/3) y Ic - 2 (F^T R)_mn)
+//                        - kap J y) d_ij.
+//         K3i replaces batched_jacobian + assemble_csr_elem on those graphs
+//         (the JAX package's forward-mode Jacobian through batched_inv);
+//         its bound is K3's (the same bytes; ~50 more operations an
+//         entry).  This Jacobian is not symmetric: the solve stays on
+//         host LU (solver/anm.py).
 // One warp per element: the warp fills the 9x9 Jacobian, the Dout x 9
 // product Lout J and the Dout x Din E through shared memory.  The
 // scatter-add into CSR is inverted on the host (nnz -> its slots,
@@ -168,6 +187,110 @@ struct NHIJacobian {
                        G[j * 3 + i] * (d1 * H[n * 3 + m] - a23 * R[m * 3 + n]) -
                        c * G[j * 3 + m] * H[n * 3 + i];
             if (i == m) v += mu * A * M[n * 3 + j];
+            sJ[idx] = v;
+        }
+    }
+};
+
+// What both inverse Jacobians read: Y = Dm^-1 of Dm = g0 + bias (cofactor
+// over the determinant), F = Ds Y, b = F F^T, R = F Y^T and J = det F =
+// det Ds / det Dm.
+__device__ __forceinline__ void inv_factors(const double* __restrict__ gin0,
+                                            const double* __restrict__ bias,
+                                            const double* __restrict__ ds,
+                                            int64_t b, double* Y, double* F,
+                                            double* Bb, double* R,
+                                            double& J) {
+    double Dm[9], Ds[9], C[9];
+    for (int i = 0; i < 9; ++i) {
+        Dm[i] = gin0[b * 9 + i] + bias[b * 9 + i];
+        Ds[i] = ds[b * 9 + i];
+    }
+    for (int i = 0; i < 3; ++i) {
+        const int r0 = i == 0 ? 1 : 0, r1 = i == 2 ? 1 : 2;
+        for (int j = 0; j < 3; ++j) {
+            const int k0 = j == 0 ? 1 : 0, k1 = j == 2 ? 1 : 2;
+            double mnr = Dm[r0 * 3 + k0] * Dm[r1 * 3 + k1] -
+                         Dm[r0 * 3 + k1] * Dm[r1 * 3 + k0];
+            C[i * 3 + j] = ((i + j) & 1) ? -mnr : mnr;
+        }
+    }
+    const double det = Dm[0] * C[0] + Dm[1] * C[1] + Dm[2] * C[2];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) Y[i * 3 + j] = C[j * 3 + i] / det;
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            F[i * 3 + j] = Ds[i * 3] * Y[j] + Ds[i * 3 + 1] * Y[3 + j] +
+                           Ds[i * 3 + 2] * Y[6 + j];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+            Bb[i * 3 + j] = F[i * 3] * F[j * 3] + F[i * 3 + 1] * F[j * 3 + 1] +
+                            F[i * 3 + 2] * F[j * 3 + 2];
+            R[i * 3 + j] = F[i * 3] * Y[j * 3] + F[i * 3 + 1] * Y[j * 3 + 1] +
+                           F[i * 3 + 2] * Y[j * 3 + 2];
+        }
+    const double detDs = Ds[0] * (Ds[4] * Ds[8] - Ds[5] * Ds[7]) -
+                         Ds[1] * (Ds[3] * Ds[8] - Ds[5] * Ds[6]) +
+                         Ds[2] * (Ds[3] * Ds[7] - Ds[4] * Ds[6]);
+    J = detDs / det;
+}
+
+// The inverse model's NHC Jacobian in g (the rest shape), written to sJ
+// (81) by the lanes of one warp.
+struct InvNHCJacobian {
+    struct Params {
+        const double *gin0, *bias, *ds;
+        double mu, lam;
+    };
+
+    static __device__ void fill(const Params& prm, int64_t b, int lane,
+                                double* sJ) {
+        double Y[9], F[9], Bb[9], R[9], J;
+        inv_factors(prm.gin0, prm.bias, prm.ds, b, Y, F, Bb, R, J);
+        const double Jinv = 1.0 / J, mu = prm.mu;
+        const double cd = Jinv * (mu + prm.lam * (log(Jinv) + 1.0));
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
+            const double y = Y[n * 3 + m];
+            double v = mu * Jinv *
+                       (y * Bb[i * 3 + j] - F[i * 3 + m] * R[j * 3 + n] -
+                        R[i * 3 + n] * F[j * 3 + m]);
+            if (i == j) v -= cd * y;
+            sJ[idx] = v;
+        }
+    }
+};
+
+// The inverse model's NHI Jacobian in g (the rest shape), written to sJ
+// (81) by the lanes of one warp.
+struct InvNHIJacobian {
+    struct Params {
+        const double *gin0, *bias, *ds;
+        double mu, kap;
+    };
+
+    static __device__ void fill(const Params& prm, int64_t b, int lane,
+                                double* sJ) {
+        double Y[9], F[9], Bb[9], R[9], J;
+        inv_factors(prm.gin0, prm.bias, prm.ds, b, Y, F, Bb, R, J);
+        const double mu = prm.mu, kap = prm.kap;
+        const double A = pow(J, -5.0 / 3.0);
+        const double Ic = Bb[0] + Bb[4] + Bb[8];
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, n = q % 3;
+            const double y = Y[n * 3 + m];
+            double v = mu * A *
+                       ((5.0 / 3.0) * y * Bb[i * 3 + j] -
+                        F[i * 3 + m] * R[j * 3 + n] -
+                        R[i * 3 + n] * F[j * 3 + m]);
+            if (i == j) {
+                const double S = F[m] * R[n] + F[3 + m] * R[3 + n] +
+                                 F[6 + m] * R[6 + n];  // (F^T R)_mn
+                v += (-mu / 3.0) * A * ((5.0 / 3.0) * y * Ic - 2.0 * S) -
+                     kap * J * y;
+            }
             sJ[idx] = v;
         }
     }
@@ -329,6 +452,30 @@ extern "C" int sanm_jac_asm_nhi(const double* gin0, const double* bias,
     return jac_asm<NHIJacobian>({gin0, bias, dminv, mu, kappa}, Lout, Lin,
                                 nz_ptr, nz_slot, E, data, B, Dout, Din, nnz,
                                 (cudaStream_t)stream);
+}
+
+extern "C" int sanm_jac_asm_inv(const double* gin0, const double* bias,
+                                const double* ds, const double* Lout,
+                                const double* Lin, const int32_t* nz_ptr,
+                                const int32_t* nz_slot, double* E,
+                                double* data, int64_t B, int Dout, int Din,
+                                int64_t nnz, double mu, double lam,
+                                void* stream) {
+    return jac_asm<InvNHCJacobian>({gin0, bias, ds, mu, lam}, Lout, Lin,
+                                   nz_ptr, nz_slot, E, data, B, Dout, Din,
+                                   nnz, (cudaStream_t)stream);
+}
+
+extern "C" int sanm_jac_asm_inv_nhi(const double* gin0, const double* bias,
+                                    const double* ds, const double* Lout,
+                                    const double* Lin, const int32_t* nz_ptr,
+                                    const int32_t* nz_slot, double* E,
+                                    double* data, int64_t B, int Dout,
+                                    int Din, int64_t nnz, double mu,
+                                    double kappa, void* stream) {
+    return jac_asm<InvNHIJacobian>({gin0, bias, ds, mu, kappa}, Lout, Lin,
+                                   nz_ptr, nz_slot, E, data, B, Dout, Din,
+                                   nnz, (cudaStream_t)stream);
 }
 
 extern "C" int sanm_grad_t(const double* E, const int32_t* t_ptr,

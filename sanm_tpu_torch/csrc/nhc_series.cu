@@ -49,15 +49,7 @@ __device__ void order_pass(const Hist23& H, int m, const double* Fm,
                            double mu, double lam, double* P) {
     double Cm[9], Jm, Qm[9], Lm;
     cofactor_terms(H, m, Fm, Cm, Jm, Qm);
-    if (m == 0) {
-        Lm = log(Jm);
-    } else {
-        const double J0 = H.get(0, cJ);
-        double conv = 0.0;
-        for (int t = 1; t < m; ++t)
-            conv += H.get(t, cL) * H.get(m - t, cJ) * ((double)t / m);
-        Lm = Jm / J0 + (-conv / J0);
-    }
+    Lm = m == 0 ? log(Jm) : log_rec(H, m, Jm, cJ, cL);
     if (COMMIT) {
         for (int i = 0; i < 3; ++i) H.set(m, cC + i, Cm[i]);
         for (int i = 0; i < 9; ++i) H.set(m, cQ + i, Qm[i]);

@@ -63,17 +63,7 @@ __device__ void order_pass(const Hist25& H, int m, const double* Fm,
         Icm += dot;
     }
     // ---- A_m: the power recurrence ----
-    double Am;
-    if (m == 0) {
-        Am = pow(Jm, kP);
-    } else {
-        const double J0 = H.get(0, cJ), A0 = H.get(0, cA);
-        double conv = 0.0;
-        for (int i = 1; i < m; ++i)
-            conv += ((double)i / m * (kP + 1.0) - 1.0) *
-                    (H.get(i, cJ) * H.get(m - i, cA));
-        Am = (kP * A0 / J0) * Jm + conv / J0;
-    }
+    const double Am = m == 0 ? pow(Jm, kP) : pow_rec(H, m, Jm, cJ, cA, kP);
     // ---- s_m ----
     double a_ic = 0.0, jj = 0.0;
     for (int t = 0; t <= m; ++t) {

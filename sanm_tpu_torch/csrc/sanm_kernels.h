@@ -123,6 +123,36 @@ int sanm_jac_asm_nhi(const double* gin0, const double* bias,
 int sanm_grad_t(const double* E, const int32_t* t_ptr, const int32_t* t_slot,
                 double* grad_t, int64_t n_rows, void* stream);
 
+// K1i: commit order k of the inverse model's series histories hist
+// (order+1, 29, B) (NHC, Lame parameters mu and lam) or (order+1, 30, B)
+// (NHI, mu and the bulk modulus kappa) from the graph input g_k (B, 9)
+// (plus bias at k = 0; Dm = g + bias, F = Ds Dm^-1 with Ds (B, 9)), then,
+// when want_bias, write the order-(k+1) bias of the Cauchy stress (B, 9)
+// into bias_out.
+int sanm_inv_nhc_step(double* hist, const double* gin, const double* bias,
+                      const double* ds, double* bias_out, int64_t B, int k,
+                      int order, double mu, double lam, int want_bias,
+                      void* stream);
+int sanm_inv_nhi_step(double* hist, const double* gin, const double* bias,
+                      const double* ds, double* bias_out, int64_t B, int k,
+                      int order, double mu, double kappa, int want_bias,
+                      void* stream);
+
+// K3i: per element the Jacobian of the inverse model's Cauchy stress in g
+// (9x9) at Dm = g0 + bias, F = Ds Dm^-1 (NHC: mu, lam; NHI: mu, kappa),
+// then E and the CSR values as sanm_jac_asm.
+int sanm_jac_asm_inv(const double* gin0, const double* bias,
+                     const double* ds, const double* Lout, const double* Lin,
+                     const int32_t* nz_ptr, const int32_t* nz_slot, double* E,
+                     double* data, int64_t B, int Dout, int Din, int64_t nnz,
+                     double mu, double lam, void* stream);
+int sanm_jac_asm_inv_nhi(const double* gin0, const double* bias,
+                         const double* ds, const double* Lout,
+                         const double* Lin, const int32_t* nz_ptr,
+                         const int32_t* nz_slot, double* E, double* data,
+                         int64_t B, int Dout, int Din, int64_t nnz,
+                         double mu, double kappa, void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

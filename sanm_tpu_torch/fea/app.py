@@ -8,9 +8,24 @@ with the same keys, into the current directory.  The device defaults to
 the card.  The tasks: ``gravity`` and ``test_cuboid`` (equilibrium under
 a load, :func:`run_and_save`), ``mesh_twist`` and ``test_cuboid_twist``
 (prescribed boundary displacement by implicit continuation, then an
-order-6 refinement, :func:`run_with_vtx_delta`).  The baselines,
-``save_interm``, inverse mode and ``test_single_tet_inverse`` belong to
-a later slice of the port and raise.
+order-6 refinement, :func:`run_with_vtx_delta`), and
+``test_single_tet_inverse``.
+
+Inverse mode (rest-shape design: the rest shape that the load deforms
+into the given mesh) is ``"inverse": true`` in a config, e.g.
+``configs/override_inverse.json`` after ``configs/armadillo_small.json``;
+it writes ``<out>-i1-<energy>.json``.  On the CPU::
+
+    python -m sanm_tpu_torch.fea --device cpu configs/sys.json \
+        configs/armadillo_small.json configs/override_inverse.json
+
+and ``configs/test_single_tet_inverse.json`` for the single tet; with
+``FEA_INVCHECK=1`` set, the result is solved back in the other mode and
+``invcheck norm`` prints how far that lands from the start.  On the card
+drop ``--device cpu``.  The inverse model's Jacobian is not symmetric, so
+its solve stays on host LU (SuperLU), as in the JAX package: ``auto``
+takes host LU and ``"solver": "band_chol"`` raises.  The baselines and
+``save_interm`` belong to a later slice of the port and raise.
 """
 
 from __future__ import annotations
@@ -197,22 +212,24 @@ def get_nr_inverted(tets, v0, v1):
 
 def run_and_save(name, config, deformable: DeformableBody,
                  inverse_mode: bool, f_load_full, save=True, progress=True,
-                 device=None):
-    if inverse_mode:
-        raise SANMError("inverse mode is not ported yet")
+                 device=None, allow_invcheck=True):
+    """Solve the equilibrium of ``deformable`` under ``f_load_full``
+    (V, 3): the deformed shape, or with ``inverse_mode`` the rest shape
+    that the load deforms into the mesh; then :func:`_post_process`."""
     if config.get("baseline") is not None:
         raise SANMError("the baselines are not ported yet")
     if config.get("save_interm", False):
         raise SANMError("save_interm is not ported yet")
-    if os.environ.get("FEA_INVCHECK"):
-        raise SANMError("FEA_INVCHECK (inverse round trip) is not ported yet")
     dev = resolve_device(device)
     if progress:
-        print("solving %s " % name, end="", flush=True)
+        print("solving %s%s " % (name, " (inv)" if inverse_mode else ""),
+              end="", flush=True)
     jstat = {}
     timer = Timer().start()
 
-    model = deformable.make_forward(energy_model_of(config), device=dev)
+    em = energy_model_of(config)
+    model = (deformable.make_inverse(em, device=dev) if inverse_mode
+             else deformable.make_forward(em, device=dev))
     f_load_sub = model.lt_inp.copy_vtx_values(f_load_full)
     jstat["time_prep"] = timer.stop().time()
 
@@ -264,18 +281,20 @@ def run_and_save(name, config, deformable: DeformableBody,
     jstat["loop_resolved"] = "hybrid"
     jstat["loop_mode"] = "hybrid"
     res = _post_process(name, config, deformable, model, xt, f_load_sub,
-                        jstat, save, True)
+                        f_load_full, jstat, inverse_mode, save,
+                        allow_invcheck, progress, dev)
     res.solver = solver
     return res
 
 
-def _post_process(name, config, deformable, model, xt, f_load_sub, jstat,
-                  save, solution_sanity_check):
+def _post_process(name, config, deformable, model, xt, f_load_sub,
+                  f_load_full, jstat, inverse_mode, save, allow_invcheck,
+                  progress, dev):
     out_mesh = deformable.mesh.copy()
     out_mesh.replace_with_mask(deformable.coord_fixed_mask, xt)
 
     jstat["force_rms_recomp"] = DeformableBody.compute_force_rms(
-        model, xt, f_load_sub, out_mesh, solution_sanity_check
+        model, xt, f_load_sub, out_mesh, True
     )
     jstat["mesh_V"] = deformable.mesh.nr_vertices
     jstat["mesh_F"] = deformable.mesh.nr_tet
@@ -288,11 +307,28 @@ def _post_process(name, config, deformable, model, xt, f_load_sub, jstat,
     if save:
         out = config["out_filename"]
         deformable.mesh.write_obj(out + "-orig.obj")
-        out += "-i0-%s" % config["energy_model"]
+        out += "-i%d-%s" % (int(inverse_mode), config["energy_model"])
         out_mesh.write_obj(out + ".obj")
         save_json(out + ".json", jstat)
         if "out_surface_vtx" in config:
             out_mesh.write_surface_vtx(config["out_surface_vtx"])
+
+    if allow_invcheck and os.environ.get("FEA_INVCHECK"):
+        # forward/inverse round trip (reference fea/main.cpp:299-310): the
+        # result solved in the other mode should land on the start mesh;
+        # the new body on the result builds its own output remap
+        inv_body = DeformableBody(deformable.material, out_mesh)
+        inv_body.coord_fixed_mask = deformable.coord_fixed_mask
+        restored = run_and_save(
+            name + " invcheck", config, inv_body, not inverse_mode,
+            f_load_full, save=False, progress=progress, device=dev,
+            allow_invcheck=False,
+        )
+        norm = float(np.linalg.norm(restored.mesh.vertices
+                                    - deformable.mesh.vertices))
+        jstat["invcheck_norm"] = norm
+        jstat["invcheck_solver_resolved"] = restored.stat["solver_resolved"]
+        print("invcheck norm: %g" % norm)
     return TaskResult(out_mesh, jstat)
 
 
@@ -498,6 +534,33 @@ def _delta_stats(jstat, deformable, vtx_coord, eval_force_rms,
 # ----------------------------------------------------------------------------
 # procedural cuboid tasks (reference fea/main.cpp:623-772)
 # ----------------------------------------------------------------------------
+
+
+def test_single_tet_inverse(config, rootpath=".", device=None):
+    """Reference ``test_single_tet_inverse`` (``fea/main.cpp:584-621``):
+    the rest shape of one tet whose base is fixed and whose apex, pulled
+    down by 1000 N, lands on the given shape."""
+    dev = resolve_device(device)
+    spacing = float(config["spacing"])
+    material = make_material_property(config["material"])
+    angle = 2 * math.pi / 3
+    coords = np.zeros((4, 3))
+    for i in range(3):
+        coords[i, 0] = math.cos(angle * i) * spacing
+        coords[i, 1] = math.sin(angle * i) * spacing
+    coords[3, 2] = spacing
+    mesh = TetrahedralMesh(coords, np.arange(4)[None, :])
+    body = DeformableBody(material, mesh)
+    body.coord_fixed_mask[:3, :] = True
+    f_load_full = np.zeros((4, 3))
+    f_load_full[3, 2] = -1000.0
+    res = run_and_save("single tet inv", config, body, True, f_load_full,
+                       device=dev)
+    for i in range(4):
+        a, b = coords[i], res.mesh.vertices[i]
+        print("vertex %d: (%.3f, %.3f, %.3f) -> (%.3f, %.3f, %.3f)"
+              % (i, *a, *b))
+    return res
 
 
 def test_cuboid(config, rootpath=".", device=None):
@@ -712,6 +775,7 @@ def _with_warm_rerun(fn):
 
 
 TASKS = {
+    "test_single_tet_inverse": test_single_tet_inverse,
     "test_cuboid": test_cuboid,
     "test_cuboid_twist": _with_warm_rerun(test_cuboid_twist),
     "gravity": gravity,

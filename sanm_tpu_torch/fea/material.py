@@ -3,11 +3,12 @@
 Port of ``sanm_tpu/fea/material.py`` (reference ``fea/material.{h,cpp}``)
 for the ported materials: the energy-model names, the moduli, ``pk1``
 for the compressible (NHC) and incompressible (NHI) Neo-Hookean models
-and for ARAP (whose SVD-W runs through K8a on the card), and the ARAP
-energy density.  StVK's stress belongs to a later slice and raises.
+and for ARAP (whose SVD-W runs through K8a on the card), the Cauchy
+stress of NHC and NHI (the inverse model's), and the ARAP energy
+density.  StVK's stress belongs to a later slice and raises.
 
 Conventions: F deformation gradient (B, 3, 3), J = det(F),
-P first Piola-Kirchhoff stress.
+b = F F^T, P first Piola-Kirchhoff stress, sigma Cauchy stress.
 """
 
 from __future__ import annotations
@@ -85,6 +86,30 @@ def pk1(energy_model: EnergyModel, material: MaterialProperty, F, dim: int):
     if energy_model == EnergyModel.ARAP:
         return (F - polar_w(F)) * mu
     raise SANMError(f"pk1 for {energy_model} is not ported yet")
+
+
+def cauchy_stress(energy_model: EnergyModel, material: MaterialProperty, F,
+                  dim: int):
+    """Cauchy stress sigma(F) (reference ``fea::cauchy_stress``,
+    ``fea/material.cpp:20-53``), which the inverse model reads since it
+    acts on *deformed* normals."""
+    mu = material.shear_modulus
+    eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+    if energy_model == EnergyModel.NEOHOOKEAN_I:
+        k = material.bulk_modulus
+        b = torch.bmm(F, F.transpose(1, 2))
+        J = batched_det(F)
+        Ic = torch.sum(F * F, dim=(-1, -2))
+        J53 = J ** (-5.0 / 3.0)
+        t2 = (-mu / 3.0) * (J53 * Ic) + k * J - k
+        return mu * J53[:, None, None] * b + t2[:, None, None] * eye
+    if energy_model == EnergyModel.NEOHOOKEAN_C:
+        lam = material.lame_first
+        b = torch.bmm(F, F.transpose(1, 2))
+        Jinv = batched_det(F) ** (-1.0)
+        xI = mu * Jinv + lam * Jinv * torch.log(Jinv)
+        return mu * Jinv[:, None, None] * b - xI[:, None, None] * eye
+    raise SANMError(f"cauchy_stress unimplemented for {energy_model}")
 
 
 def elastic_potential_density(energy_model: EnergyModel,

@@ -1,15 +1,24 @@
 """Deformable body: assembling the elastic force model.
 
 Port of ``sanm_tpu/fea/model.py`` (reference ``DeformableBody``,
-``fea/mesh_template.h:163-237``), forward model only: the unknowns are
-the deformed free vertex coordinates (and, with a ``vtx_delta``, the
-continuation parameter t of the implicit solver); the graph maps
-remapped shape matrices Ds to the first Piola-Kirchhoff stress P(F)
-with F = (g + bias) Dm^-1; the output remap (rest-shape normals) turns
-P into nodal forces.  The model lives on one device: its remaps run through
-the K2 kernels (``solver/assemble.py``) and the stress in f64 torch
-(ARAP's SVD-W through K8a).  It hands the ANM driver its material's
-series and Jacobian assembly (:data:`MATERIAL_KERNELS`).
+``fea/mesh_template.h:163-237``):
+
+* forward model: the unknowns are the deformed free vertex coordinates
+  (and, with a ``vtx_delta``, the continuation parameter t of the
+  implicit solver); the graph maps remapped shape matrices Ds to the
+  first Piola-Kirchhoff stress P(F) with F = (g + bias) Dm^-1; the output
+  remap (rest-shape normals) turns P into nodal forces;
+* inverse model (rest-shape design): the unknowns are the *rest*
+  coordinates; the graph maps remapped rest shape matrices Dm to the
+  Cauchy stress sigma(F) with F = Ds (g + bias)^-1 (Ds of the given,
+  deformed mesh); the output remap uses the given mesh's normals.  Its
+  Jacobian is not symmetric (``symmetric`` False), so its solve stays on
+  host LU.
+
+The model lives on one device: its remaps run through the K2 kernels
+(``solver/assemble.py``) and the stress in f64 torch (ARAP's SVD-W
+through K8a).  It hands the ANM driver its material's series and
+Jacobian assembly (:data:`MATERIAL_KERNELS`).
 """
 
 from __future__ import annotations
@@ -22,15 +31,16 @@ import torch
 
 from .. import resolve_device
 from ..ops.arap_series import ARAPSeries
-from ..ops.elements import Elements
+from ..ops.elements import Elements, InvElements
+from ..ops.inv_series import InvNHCSeries, InvNHISeries
 from ..ops.nhc_series import NHCSeries
 from ..ops.nhi_series import NHISeries
 from ..ops.svd_w import svd_w
 from ..solver.assemble import (DeviceAssembler, jac_asm, jac_asm_arap,
-                               jac_asm_nhi)
+                               jac_asm_inv, jac_asm_inv_nhi, jac_asm_nhi)
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
-from .material import (EnergyModel, MaterialProperty,
+from .material import (EnergyModel, MaterialProperty, cauchy_stress,
                        elastic_potential_density, pk1)
 from .mesh import TetrahedralMesh
 from .remap import ForceOutputRemap, ShapeMatRemap
@@ -42,24 +52,28 @@ def _jac_asm_arap(asm, elems, gin0):
                         *svd_w(elems.deformation_gradient(gin0)))
 
 
-#: per ported energy model, its series class (K1, K1n, K8b) and its
-#: Jacobian assembly ``(asm, elems, gin0) -> (data, grad_t, E)`` (K3,
-#: K3n, K8a + K8c; each followed by K3t where the plan has a t column)
+#: per ported (energy model, inverse), its series class (K1, K1n, K8b;
+#: K1i) and its Jacobian assembly ``(asm, elems, gin0) -> (data, grad_t,
+#: E)`` (K3, K3n, K8a + K8c, each followed by K3t where the plan has a t
+#: column; K3i)
 MATERIAL_KERNELS = {
-    EnergyModel.NEOHOOKEAN_C: (NHCSeries, jac_asm),
-    EnergyModel.NEOHOOKEAN_I: (NHISeries, jac_asm_nhi),
-    EnergyModel.ARAP: (ARAPSeries, _jac_asm_arap),
+    (EnergyModel.NEOHOOKEAN_C, False): (NHCSeries, jac_asm),
+    (EnergyModel.NEOHOOKEAN_I, False): (NHISeries, jac_asm_nhi),
+    (EnergyModel.ARAP, False): (ARAPSeries, _jac_asm_arap),
+    (EnergyModel.NEOHOOKEAN_C, True): (InvNHCSeries, jac_asm_inv),
+    (EnergyModel.NEOHOOKEAN_I, True): (InvNHISeries, jac_asm_inv_nhi),
 }
-#: the energy models whose series and Jacobian kernels are ported
-PORTED = tuple(MATERIAL_KERNELS)
+#: the energy models whose forward series and Jacobian kernels are ported
+PORTED = tuple(em for em, inverse in MATERIAL_KERNELS if not inverse)
 
 
 @dataclass
 class ElasticForceModel:
     """Reference ``DeformableBody::ElasticForceModel``
     (``fea/mesh_template.h:153-159``), with its device state: the
-    assembler plan (``asm``) and the per-element constants
-    (``elems``)."""
+    assembler plan (``asm``) and the per-element constants (``elems``:
+    :class:`Elements`, or :class:`InvElements` for an ``inverse``
+    model)."""
 
     energy_model: EnergyModel
     material: MaterialProperty
@@ -67,24 +81,37 @@ class ElasticForceModel:
     lt_out: ForceOutputRemap
     asm: DeviceAssembler
     elems: Elements
-    vols: torch.Tensor  # (B,) rest volumes
+    vols: torch.Tensor  # (B,) volumes of the mesh the model was made on
+    inverse: bool = False
 
     @property
     def device(self):
         return self.asm.device
 
+    @property
+    def symmetric(self):
+        """Whether the Jacobian is symmetric: a forward model's is (the
+        Hessian of an energy), the inverse model's is not.  The band
+        Cholesky factors only a symmetric one (``solver/anm.py``)."""
+        return not self.inverse
+
     def x0(self):
         return self.lt_inp.x0
 
     def stress(self, gin):
-        """P (B, 9) at graph input ``gin`` (B, 9)."""
+        """P (B, 9) at graph input ``gin`` (B, 9); sigma for an inverse
+        model."""
         F = self.elems.deformation_gradient(gin)
-        return pk1(self.energy_model, self.material, F, 3).reshape(-1, 9)
+        fn = cauchy_stress if self.inverse else pk1
+        return fn(self.energy_model, self.material, F, 3).reshape(-1, 9)
+
+    def _kernels(self):
+        return MATERIAL_KERNELS[(self.energy_model, self.inverse)]
 
     def series(self, order: int):
         """The material's Taylor-series state for one expansion of
         ``order`` (:data:`MATERIAL_KERNELS`)."""
-        return MATERIAL_KERNELS[self.energy_model][0](self.elems, order)
+        return self._kernels()[0](self.elems, order)
 
     def jac_asm(self, gin0):
         """``(data, grad_t, E)``: the CSR values, the assembled t column
@@ -93,8 +120,7 @@ class ElasticForceModel:
         (:data:`MATERIAL_KERNELS`)."""
         if not self.asm.jacobian:
             raise SANMError("a force-only model has no Jacobian plan")
-        return MATERIAL_KERNELS[self.energy_model][1](self.asm, self.elems,
-                                                      gin0)
+        return self._kernels()[1](self.asm, self.elems, gin0)
 
     def eval_force(self, x):
         """Nodal force (n,) at unknown vector x ((n + 1,) with the t
@@ -106,7 +132,9 @@ class ElasticForceModel:
     def eval_potential(self, x):
         """The elastic energy sum_e W(F_e) vol_e at x, as a float; None
         for a material without a potential density (NHC, NHI: only ARAP
-        has one, as in the JAX package)."""
+        has one, as in the JAX package) and for an inverse model."""
+        if self.inverse:
+            return None
         F = self.elems.deformation_gradient(
             self.asm.apply_in(np.asarray(x).reshape(-1)))
         w = elastic_potential_density(self.energy_model, self.material, F, 3)
@@ -150,13 +178,36 @@ class DeformableBody:
         dev = resolve_device(device)
         lt_inp = ShapeMatRemap(self.mesh, self.coord_fixed_mask,
                                init_vtx_coord, vtx_delta)
+        dm_inv = np.linalg.inv(self.mesh.shape_matrix)
+        return self._model(energy_model, lt_inp, Elements, dm_inv, dev,
+                           jacobian, False)
+
+    def make_inverse(self, energy_model: EnergyModel, device=None,
+                     jacobian=True) -> ElasticForceModel:
+        """Inverse (rest-shape design) model (reference ``make_inverse``,
+        ``fea/mesh_template.h:172-189``): the unknowns are the rest
+        coordinates, starting from the mesh's (the given, deformed
+        shape); the graph is sigma(Ds (g + bias)^-1), Ds the mesh's shape
+        matrix; on ``device`` as :meth:`make_forward`.  Only NHC and NHI
+        have a Cauchy stress, as in the JAX package."""
+        if (energy_model, True) not in MATERIAL_KERNELS:
+            raise SANMError(f"cauchy_stress unimplemented for {energy_model}")
+        dev = resolve_device(device)
+        lt_inp = ShapeMatRemap(self.mesh, self.coord_fixed_mask, None, None)
+        return self._model(energy_model, lt_inp, InvElements,
+                           self.mesh.shape_matrix, dev, jacobian, True)
+
+    def _model(self, energy_model, lt_inp, elems_cls, mat, dev, jacobian,
+               inverse):
+        """The model on ``dev`` from its input remap: the output remap,
+        the assembler plan and the per-element constants (``mat``
+        (T, 3, 3): Dm^-1, or the inverse model's Ds)."""
         lt_out = self._force_output_remap(lt_inp)
         T = self.mesh.nr_tet
         plan = SparseAssembler(lt_out.remap, lt_inp.remap, T, 9, 9,
                                lt_inp.n_unknown_vtx)
-        dm_inv = np.linalg.inv(self.mesh.shape_matrix)
-        elems = Elements(
-            dminv=torch.as_tensor(dm_inv.reshape(T, 9)).to(dev),
+        elems = elems_cls(
+            torch.as_tensor(np.reshape(mat, (T, 9))).to(dev),
             bias=torch.as_tensor(lt_inp.bias.reshape(T, 9)).to(dev),
             mu=self.material.shear_modulus,
             lam=self.material.lame_first,
@@ -165,7 +216,7 @@ class DeformableBody:
         return ElasticForceModel(
             energy_model, self.material, lt_inp, lt_out,
             DeviceAssembler.from_plan(plan, dev, jacobian), elems,
-            torch.as_tensor(self.mesh.tet_volumes).to(dev),
+            torch.as_tensor(self.mesh.tet_volumes).to(dev), inverse,
         )
 
     @staticmethod

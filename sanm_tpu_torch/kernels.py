@@ -40,7 +40,9 @@ NVCC_TIMEOUT_S = 300
 LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "element_matvec": 0, "band_assemble": 0, "band_factor": 0,
             "band_solve": 0, "svd_w": 0, "arap_step": 0, "jac_asm_arap": 0,
-            "nhi_step": 0, "jac_asm_nhi": 0, "grad_t": 0}
+            "nhi_step": 0, "jac_asm_nhi": 0, "grad_t": 0,
+            "inv_nhc_step": 0, "inv_nhi_step": 0, "jac_asm_inv": 0,
+            "jac_asm_inv_nhi": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -74,6 +76,14 @@ _SIGNATURES = {
     "sanm_jac_asm_nhi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                          _I32, _I64, _F64, _F64, _P],
     "sanm_grad_t": [_P, _P, _P, _P, _I64, _P],
+    "sanm_inv_nhc_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
+                          _I32, _P],
+    "sanm_inv_nhi_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
+                          _I32, _P],
+    "sanm_jac_asm_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                         _I32, _I64, _F64, _F64, _P],
+    "sanm_jac_asm_inv_nhi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                             _I32, _I64, _F64, _F64, _P],
 }
 
 

@@ -37,9 +37,11 @@ _M2A = [_R[i][0] * 3 + _R[j][1] for i in range(3) for j in range(3)]
 _M2B = [_R[i][1] * 3 + _R[j][0] for i in range(3) for j in range(3)]
 
 
-def check_step(hist, k, gin, elems, out, ncomp=NCOMP):
+def check_step(hist, k, gin, elems, out, ncomp=NCOMP, const="dminv"):
     """Check the arguments of a Neo-Hookean series step (histories of
-    ``ncomp`` components); returns ``(order, want_bias)``."""
+    ``ncomp`` components; ``const`` names the per-element matrix the step
+    reads besides the bias: Dm^-1, or the inverse model's Ds); returns
+    ``(order, want_bias)``."""
     B = elems.B
     if hist.dim() != 3 or hist.shape[1:] != (ncomp, B):
         raise SANMError("hist: shape %s, expected (order+1, %d, %d)"
@@ -47,7 +49,7 @@ def check_step(hist, k, gin, elems, out, ncomp=NCOMP):
     kernels.check(hist, "hist", hist.shape, torch.float64)
     kernels.check(gin, "gin", (B, 9), torch.float64)
     kernels.check(elems.bias, "bias", (B, 9), torch.float64)
-    kernels.check(elems.dminv, "dminv", (B, 9), torch.float64)
+    kernels.check(getattr(elems, const), const, (B, 9), torch.float64)
     order = hist.shape[0] - 1
     want_bias = out is not None
     if not 0 <= k <= order or (want_bias and k + 1 > order):
@@ -77,11 +79,10 @@ def nhc_step(hist, k: int, gin, elems: Elements, out=None):
     return out
 
 
-def cofactor_terms(hist, m, Fm):
-    """``(C_m, J_m, Q_m)`` (9, B), (B,), (9, B): order m of the cofactor,
-    det F and F^-T = C / J from histories 0..m-1 (F 0-8, C row 0 9-11,
-    Q 12-20, J 21, as both Neo-Hookean steps lay them out) with
-    F_m = ``Fm``; the Cauchy products and the quotient recurrence of
+def cofactor_det(hist, m, Fm):
+    """``(C_m, J_m)`` (9, B), (B,): order m of the cofactor and of det F
+    from histories 0..m-1 (F 0-8, C row 0 9-11, J 21, as the Neo-Hookean
+    steps lay them out) with F_m = ``Fm``; the Cauchy products of
     ``csrc/nh_series.h``."""
     def F(t):
         return Fm if t == m else hist[t, _F]
@@ -99,13 +100,27 @@ def cofactor_terms(hist, m, Fm):
         c = Cm[0:3] if t == 0 else hist[m - t, _C0]
         for j in range(3):
             Jm = Jm + f[j] * c[j]
+    return Cm, Jm
+
+
+def quotient(hist, m, Nm, Jm):
+    """Order m of Q = N / J (9, B) from the histories of Q (12-20) and J
+    (21) and N_m = ``Nm``, J_m = ``Jm``: the div rule of
+    ``csrc/nh_series.h``."""
     if m == 0:
-        return Cm, Jm, Cm / Jm
+        return Nm / Jm
     J0 = hist[0, _J]
-    conv = torch.zeros_like(Cm)
+    conv = torch.zeros_like(Nm)
     for t in range(1, m):
         conv = conv + hist[t, _Q] * hist[m - t, _J]
-    return Cm, Jm, (Cm - hist[0, _Q] * Jm - conv) / J0
+    return (Nm - hist[0, _Q] * Jm - conv) / J0
+
+
+def cofactor_terms(hist, m, Fm):
+    """``(C_m, J_m, Q_m)`` (9, B), (B,), (9, B): order m of the cofactor,
+    det F and F^-T = C / J (:func:`cofactor_det`, :func:`quotient`)."""
+    Cm, Jm = cofactor_det(hist, m, Fm)
+    return Cm, Jm, quotient(hist, m, Cm, Jm)
 
 
 def _order_pass(hist, m, Fm, mu, lam, commit):

@@ -13,7 +13,8 @@ with the same A for every k.  Per restart the card computes the element
 Jacobian and the CSR values and the order-0 series; per order it runs K2
 remap_in, the material's series step (commit k + bias k+1) and K2
 remap_out.  The model supplies both material kernels (``model.jac_asm``,
-``model.series``): K3 and K1 for NHC, K8a + K8c and K8b for ARAP.
+``model.series``): K3 and K1 for NHC, K3n and K1n for NHI, K8a + K8c and
+K8b for ARAP, K3i and K1i for the inverse model.
 
 * ``host_lu``: the host factorizes A once (SuperLU); b crosses to the
   host once per order (``bias_pull``), is back-substituted, and the host
@@ -30,10 +31,12 @@ remap_out.  The model supplies both material kernels (``model.jac_asm``,
 The continuation control (restarts, Pade, convergence) is host Python on
 the (N+1, n+1) coefficient matrix.
 
-The model here is the forward model of
-:class:`~sanm_tpu_torch.fea.model.ElasticForceModel`; its f(x0) is
-evaluated in f64 on the model's device.  Two kinds of curve share the
-driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
+The model here is an
+:class:`~sanm_tpu_torch.fea.model.ElasticForceModel`, forward or inverse;
+its f(x0) is evaluated in f64 on the model's device.  The inverse
+model's Jacobian is not symmetric (``model.symmetric``), so ``auto``
+takes host LU for it and ``band_chol`` raises.  Two kinds of curve share
+the driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
 :class:`ANMEqnSolver` on top of it), where dH/dt is the vector v, and
 f(x, t) = f(x0, t0) (:class:`ANMImplicitSolver`), whose model reads t
 and whose dH/dt is the t column that K3t assembles with A.
@@ -50,6 +53,7 @@ import torch
 from .. import polynomial
 from ..pade import PadeApproximation
 from ..utils import (
+    SANMError,
     SANMNumericalError,
     ScopedProfiler,
     sanm_assert,
@@ -114,6 +118,11 @@ class _ANMDriverBase:
         sanm_assert(self.hp.order >= 2, "order=%d", self.hp.order)
         sanm_assert(self.hp.solver in SOLVERS, "solver %r is not ported",
                     self.hp.solver)
+        if self.hp.solver == "band_chol" and not model.symmetric:
+            raise SANMError(
+                "solver band_chol factors -(D A D) by Cholesky, which needs "
+                "a symmetric Jacobian A; this model's (the inverse model's) "
+                "is not symmetric: use host_lu or auto")
         self.model = model
         self.asm = model.asm
         self.n = int(n_unknown)
@@ -215,13 +224,15 @@ class _ANMDriverBase:
 
     def _band_auto_ok(self):
         """Whether ``auto`` takes ``band_chol``: on the card only (the CPU
-        keeps host LU), without the l2 penalty (band_chol refuses
-        Tikhonov mode), before a second failed pre-gate, and when the
-        plan's factor plus working band fit in half of the card's free
-        memory.  The JAX package's TPU threshold on the factor FLOPs is
+        keeps host LU), for a model whose Jacobian is symmetric (not the
+        inverse model's: the band factor is a Cholesky), without the l2
+        penalty (band_chol refuses Tikhonov mode), before a second failed
+        pre-gate, and when the plan's factor plus working band fit in half
+        of the card's free memory.  The JAX package's TPU threshold on the factor FLOPs is
         not ported; on the H100 the band path wins on armadillo-small
         (PERF.md)."""
-        if (self.asm.device.type != "cuda" or self.hp.xcoeff_l2_penalty
+        if (self.asm.device.type != "cuda" or not self.model.symmetric
+                or self.hp.xcoeff_l2_penalty
                 or self._factor_gate_fails >= 2):
             return False
         if self._band_auto is None:

@@ -9,7 +9,9 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   ``assemble_csr_elem``), once per restart, with the material's
   closed-form Jacobian: K3 for the NHC stress, K3n
   (:func:`jac_asm_nhi`) for NHI, K8c (:func:`jac_asm_arap`) for ARAP,
-  whose SVD-W of F runs through K8a first; each returns
+  whose SVD-W of F runs through K8a first, and for the inverse model's
+  Cauchy stress K3i (:func:`jac_asm_inv` NHC, :func:`jac_asm_inv_nhi`
+  NHI; ``solver/anm.py:278`` on ``make_inverse``'s graph); each returns
   ``(data, grad_t, E)``, where grad_t, the assembled t column of the
   implicit continuation (None without one), is K3t :func:`grad_t`;
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.elements import Elements
+from ..ops.elements import Elements, InvElements
 from ..ops.svd_w import svd_w_jvp
 from ..utils import SANMError
 from .remap import gather_map
@@ -238,7 +240,7 @@ def grad_t_plain(asm: DeviceAssembler, E):
 
 
 # ---------------------------------------------------------------------------
-# Jacobian + CSR assembly: K3 (NHC), K3n (NHI) and K8c (ARAP)
+# Jacobian + CSR assembly: K3 (NHC), K3n (NHI), K8c (ARAP), K3i (inverse)
 # ---------------------------------------------------------------------------
 
 
@@ -247,25 +249,27 @@ def _check_3x3(asm):
         raise SANMError("jac_asm takes 3x3 graph inputs and outputs")
 
 
-def _check_jac(asm, elems, gin0):
+def _check_jac(asm, elems, gin0, const="dminv"):
     _check_3x3(asm)
     kernels.check(gin0, "gin0", (asm.B, 9), _f64)
-    kernels.check(elems.dminv, "dminv", (asm.B, 9), _f64)
+    kernels.check(getattr(elems, const), const, (asm.B, 9), _f64)
     kernels.check(elems.bias, "bias", (asm.B, 9), _f64)
 
 
-def _jac_asm_nh(asm, elems, gin0, counter, fn_name, c2, plain):
-    """A Neo-Hookean Jacobian + assembly kernel (K3 or K3n), whose C entry
-    point takes F's inputs and (mu, ``c2``)."""
-    _check_jac(asm, elems, gin0)
-    if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
-                           asm.nz_ptr):
+def _jac_asm_nh(asm, elems, gin0, counter, fn_name, c2, plain,
+                const="dminv"):
+    """A Neo-Hookean Jacobian + assembly kernel (K3, K3n or K3i), whose C
+    entry point takes the graph input, the bias, the per-element matrix
+    ``const`` (Dm^-1, or the inverse model's Ds) and (mu, ``c2``)."""
+    _check_jac(asm, elems, gin0, const)
+    mat = getattr(elems, const)
+    if not kernels.on_card(gin0, mat, elems.bias, asm.Lin, asm.nz_ptr):
         return plain(asm, elems, gin0)
     E = torch.empty((asm.B, asm.Dout, asm.Din), dtype=_f64,
                     device=gin0.device)
     data = torch.empty((asm.nnz,), dtype=_f64, device=gin0.device)
     kernels.launch(counter, fn_name, gin0.data_ptr(),
-                   elems.bias.data_ptr(), elems.dminv.data_ptr(),
+                   elems.bias.data_ptr(), mat.data_ptr(),
                    asm.Lout.data_ptr(), asm.Lin.data_ptr(),
                    asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
                    E.data_ptr(), data.data_ptr(), asm.B, asm.Dout, asm.Din,
@@ -288,6 +292,23 @@ def jac_asm_nhi(asm: DeviceAssembler, elems: Elements, gin0):
     :func:`jac_asm_nhi_plain` for CPU tensors."""
     return _jac_asm_nh(asm, elems, gin0, "jac_asm_nhi", "sanm_jac_asm_nhi",
                        elems.kappa, jac_asm_nhi_plain)
+
+
+def jac_asm_inv(asm: DeviceAssembler, elems: InvElements, gin0):
+    """K3i: :func:`jac_asm` for the inverse model's NHC Cauchy stress in
+    the rest shape (``elems`` an :class:`InvElements`).  Launches the
+    kernel for card tensors, runs :func:`jac_asm_inv_plain` for CPU
+    tensors."""
+    return _jac_asm_nh(asm, elems, gin0, "jac_asm_inv", "sanm_jac_asm_inv",
+                       elems.lam, jac_asm_inv_plain, "ds")
+
+
+def jac_asm_inv_nhi(asm: DeviceAssembler, elems: InvElements, gin0):
+    """K3i (NHI): :func:`jac_asm_inv` for the incompressible Cauchy
+    stress (mu and the bulk modulus kappa)."""
+    return _jac_asm_nh(asm, elems, gin0, "jac_asm_inv_nhi",
+                       "sanm_jac_asm_inv_nhi", elems.kappa,
+                       jac_asm_inv_nhi_plain, "ds")
 
 
 def jac_asm_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
@@ -378,6 +399,67 @@ def nhi_jacobian_plain(elems: Elements, gin0):
     return J4.reshape(B, 9, 9)
 
 
+def _inv_factors(elems: InvElements, gin0):
+    """Y = Dm^-1, F = Ds Y, b = F F^T, R = F Y^T (B, 3, 3) and
+    J = det F (B,) at the rest shape ``gin0`` + bias."""
+    from ..ops.linalg import batched_det, batched_inv
+
+    B = elems.B
+    Dm = (gin0 + elems.bias).reshape(B, 3, 3)
+    Ds = elems.ds.reshape(B, 3, 3)
+    Y = batched_inv(Dm)
+    F = torch.bmm(Ds, Y)
+    b = torch.bmm(F, F.transpose(1, 2))
+    R = torch.bmm(F, Y.transpose(1, 2))
+    return Y, F, b, R, batched_det(Ds) / batched_det(Dm)
+
+
+def _inv_db(Y, F, b, R, a):
+    """a (b_ij Y_nm) - F_im R_jn - R_in F_jm as J4[b, i, j, m, n]: with
+    a = 1 the NHC, with a = 5/3 the NHI shape of dsigma/dDm."""
+    YT = Y.transpose(1, 2)  # YT[m, n] = Y[n, m]
+    return (a * b[:, :, :, None, None] * YT[:, None, None, :, :]
+            - F[:, :, None, :, None] * R[:, None, :, None, :]
+            - R[:, :, None, None, :] * F[:, None, :, :, None])
+
+
+def inv_nhc_jacobian_plain(elems: InvElements, gin0):
+    """(B, 9, 9) Jacobian of the inverse model's NHC Cauchy stress in g
+    at ``gin0``: closed form through dF = -F dDm Dm^-1 (see
+    ``csrc/jac_asm.cu``)."""
+    B = elems.B
+    Y, F, b, R, J = _inv_factors(elems, gin0)
+    Jinv = 1.0 / J
+    cd = Jinv * (elems.mu + elems.lam * (torch.log(Jinv) + 1.0))
+    eye = torch.eye(3, dtype=_f64, device=gin0.device)
+    YT = Y.transpose(1, 2)
+    J4 = ((elems.mu * Jinv)[:, None, None, None, None] * _inv_db(Y, F, b, R,
+                                                                 1.0)
+          - (cd[:, None, None] * YT)[:, None, None, :, :]
+          * eye[None, :, :, None, None])
+    return J4.reshape(B, 9, 9)
+
+
+def inv_nhi_jacobian_plain(elems: InvElements, gin0):
+    """(B, 9, 9) Jacobian of the inverse model's NHI Cauchy stress in g
+    at ``gin0`` (see ``csrc/jac_asm.cu``)."""
+    B = elems.B
+    mu, kap = elems.mu, elems.kappa
+    Y, F, b, R, J = _inv_factors(elems, gin0)
+    A = J ** (-5.0 / 3.0)
+    Ic = b.diagonal(dim1=1, dim2=2).sum(-1)
+    S = torch.bmm(F.transpose(1, 2), R)  # (F^T R)[m, n]
+    YT = Y.transpose(1, 2)
+    eye = torch.eye(3, dtype=_f64, device=gin0.device)
+    diag = ((-mu / 3.0) * A[:, None, None]
+            * ((5.0 / 3.0) * Ic[:, None, None] * YT - 2.0 * S)
+            - (kap * J)[:, None, None] * YT)  # (B, m, n)
+    J4 = ((mu * A)[:, None, None, None, None] * _inv_db(Y, F, b, R,
+                                                        5.0 / 3.0)
+          + diag[:, None, None, :, :] * eye[None, :, :, None, None])
+    return J4.reshape(B, 9, 9)
+
+
 def arap_jacobian_plain(elems: Elements, u, s, w):
     """(B, 9, 9) Jacobian of P(g) = mu (F - W(F)) from the SVD-W of F:
     per basis direction (m, n) of g, dF = e_m Dm^-1[n, :] and
@@ -412,6 +494,16 @@ def jac_asm_plain(asm: DeviceAssembler, elems: Elements, gin0):
 def jac_asm_nhi_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K3n (:func:`jac_asm_nhi`)."""
     return _assemble_plain(asm, nhi_jacobian_plain(elems, gin0))
+
+
+def jac_asm_inv_plain(asm: DeviceAssembler, elems: InvElements, gin0):
+    """Plain torch version of K3i (:func:`jac_asm_inv`)."""
+    return _assemble_plain(asm, inv_nhc_jacobian_plain(elems, gin0))
+
+
+def jac_asm_inv_nhi_plain(asm: DeviceAssembler, elems: InvElements, gin0):
+    """Plain torch version of K3i NHI (:func:`jac_asm_inv_nhi`)."""
+    return _assemble_plain(asm, inv_nhi_jacobian_plain(elems, gin0))
 
 
 def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):

@@ -402,3 +402,74 @@ def test_deform_kernels(deform_models):
     assert kernels.LAUNCHES["remap_in"] == n0["remap_in"] + 1
     assert kernels.LAUNCHES["grad_t"] == n0["grad_t"] + 2
     assert kernels.LAUNCHES["element_matvec"] == n0["element_matvec"] + 1
+
+
+# The inverse slice: K1i and K3i for NHC and NHI against their plain
+# versions on the 225-tet cuboid's inverse model at a perturbed rest
+# state (at the given mesh F = I, and half of the terms vanish).
+# Tolerances: inv_*_step 1e-11 (every order divides by det Dm_0, NHI's
+# also by J_0, through 19 orders of recurrences), jac_asm_inv* 1e-12.
+INV_TOL = {"step": 1e-11, "jac": 1e-12}
+
+
+@pytest.fixture(params=["neohookean_c", "neohookean_i"])
+def inv_models(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = TetrahedralMesh.make_cuboid(6, 4, 4, 0.025)
+        body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                              mesh)
+        body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.0125, :] = True
+        out[dev] = body.make_inverse(EnergyModel.from_name(request.param),
+                                     device=dev)
+    return request.param, out
+
+
+def test_inverse_series(inv_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops import inv_series as K1i
+
+    em, models = inv_models
+    mat = "nhc" if em == "neohookean_c" else "nhi"
+    g, c = models["cuda"], models["cpu"]
+    rng = np.random.default_rng(14)
+    x0 = g.x0() + rng.uniform(-1e-3, 1e-3, g.asm.n)
+    sg, sc = g.series(20), c.series(20)
+    counter = "inv_%s_step" % mat
+    n0 = kernels.LAUNCHES[counter]
+    sg.start(g.asm.apply_in(x0))
+    sc.start(c.asm.apply_in(x0))
+    for k in range(1, 20):
+        xk = rng.standard_normal(g.asm.n) * 1e-3 * 0.5 ** k
+        bg = sg.step(k, g.asm.apply_in(xk))
+        bc = sc.step(k, c.asm.apply_in(xk))
+        assert rel(bg, bc) <= INV_TOL["step"], k
+        for sl in K1i.GROUPS[mat]:
+            assert rel(sg.hist[k, sl], sc.hist[k, sl]) \
+                <= INV_TOL["step"], (k, sl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == n0 + 20
+
+
+def test_inverse_jacobian(inv_models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    em, models = inv_models
+    g = models["cuda"]
+    name = "jac_asm_inv" if em == "neohookean_c" else "jac_asm_inv_nhi"
+    x = g.x0() + np.random.default_rng(15).uniform(-2e-3, 2e-3, g.asm.n)
+    gin = g.asm.apply_in(x)
+    n0 = kernels.LAUNCHES[name]
+    data, _, E = getattr(K, name)(g.asm, g.elems, gin)
+    data_p, _, E_p = getattr(K, name + "_plain")(g.asm, g.elems, gin)
+    assert rel(E, E_p) <= INV_TOL["jac"]
+    assert rel(data, data_p) <= INV_TOL["jac"]
+    assert g.jac_asm(gin)[0].shape == data.shape
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2

@@ -363,6 +363,62 @@ def test_grad_t_wrapper_does_not_fall_back():
     assert kernels.LAUNCHES == before
 
 
+def test_inverse_wrappers_do_not_fall_back():
+    """K1i (inv_nhc_step, inv_nhi_step) and K3i (jac_asm_inv,
+    jac_asm_inv_nhi) raise on a meta tensor, a wrong dtype, shape (the
+    other material's histories) or order range, and a non-contiguous
+    tensor; on CPU tensors they run their plain versions and count no
+    launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.ops import inv_series as K1i
+    from sanm_tpu_torch.solver import assemble
+
+    mesh = TetrahedralMesh.make_cuboid(3, 2, 2, 0.1)
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          mesh)
+    body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.05, :] = True
+    before = dict(kernels.LAUNCHES)
+    cases = ((EnergyModel.NEOHOOKEAN_C, K1i.InvNHCSeries, K1i.InvNHISeries,
+              assemble.jac_asm_inv),
+             (EnergyModel.NEOHOOKEAN_I, K1i.InvNHISeries, K1i.InvNHCSeries,
+              assemble.jac_asm_inv_nhi))
+    for em, cls, other, jac in cases:
+        model = body.make_inverse(em, device="cpu")
+        asm, elems = model.asm, model.elems
+        B = asm.B
+        gin0 = asm.apply_in(model.x0())
+        with pytest.raises(SANMError):
+            jac(asm, elems, gin0.to("meta"))
+        with pytest.raises(SANMError):  # wrong dtype
+            jac(asm, elems, gin0.float())
+        with pytest.raises(SANMError):  # wrong shape
+            jac(asm, elems, gin0[:, :8])
+        with pytest.raises(SANMError):  # not contiguous
+            jac(asm, elems, torch.zeros(9, B, dtype=torch.float64).T)
+        series = cls(elems, 4)
+        step = cls.step_fn
+        g = torch.zeros(B, 9, dtype=torch.float64)
+        with pytest.raises(SANMError):
+            step(series.hist.to("meta"), 0, gin0.to("meta"), elems)
+        with pytest.raises(SANMError):
+            step(series.hist, 0, gin0.float(), elems)
+        with pytest.raises(SANMError):  # the other material's histories
+            step(other(elems, 4).hist, 0, gin0, elems)
+        with pytest.raises(SANMError):
+            step(series.hist, 0, torch.zeros(9, B, dtype=torch.float64).T,
+                 elems)
+        with pytest.raises(SANMError):  # no order 5 for the bias of order 4
+            series.step(4, g)
+        series.start(gin0)
+        series.step(1, g)
+        jac(asm, elems, gin0)
+        model.jac_asm(gin0)
+        assert isinstance(model.series(4), cls)
+    assert kernels.LAUNCHES == before
+
+
 def _c_entry_points(text, extern_only):
     """``{name: number of parameters}`` of the ``int sanm_*(...)``
     functions declared or defined in C source ``text``."""

@@ -23,9 +23,10 @@ def cuboid_load(mesh, nx, spacing, fz=-200.0):
     return f
 
 
-def jax_model(fz=-200.0, energy_model=None):
+def jax_model(fz=-200.0, energy_model=None, inverse=False):
     """The JAX package's forward model (NHC unless ``energy_model`` names
-    another), its assembler plan and load."""
+    another; the inverse model with ``inverse``), its assembler plan and
+    load."""
     from sanm_tpu.fea import (DeformableBody, EnergyModel, MaterialProperty,
                               TetrahedralMesh)
     from sanm_tpu.solver.remap import SparseAssembler
@@ -37,7 +38,8 @@ def jax_model(fz=-200.0, energy_model=None):
         MaterialProperty.from_young_poisson(MATERIAL["E"], MATERIAL["nu"]),
         mesh)
     body.coord_fixed_mask[mesh.vertices[:, 0] <= c["spacing"] / 2, :] = True
-    model = body.make_forward(energy_model or EnergyModel.NEOHOOKEAN_C)
+    em = energy_model or EnergyModel.NEOHOOKEAN_C
+    model = body.make_inverse(em) if inverse else body.make_forward(em)
     T = mesh.nr_tet
     n = model.x0().size
     plan = SparseAssembler(model.lt_out.remap, model.lt_inp.remap, T, 9, 9,
@@ -47,15 +49,18 @@ def jax_model(fz=-200.0, energy_model=None):
     return body, model, plan, f_sub
 
 
-def port_state(body, model, plan, f_sub):
-    """The port's state fed from the JAX side's host arrays."""
+def port_state(body, model, plan, f_sub, inverse=False):
+    """The port's state fed from the JAX side's host arrays (of an inverse
+    model with ``inverse``: Ds in place of Dm^-1)."""
     from sanm_tpu_torch.convert import state_from_numpy
 
     mat = body.material
+    shape = body.mesh.shape_matrix
     return state_from_numpy(
         vertices=body.mesh.vertices, tets=body.mesh.tets,
         fixed_mask=body.coord_fixed_mask,
-        dm_inv=np.linalg.inv(body.mesh.shape_matrix),
+        **({"ds": shape} if inverse
+           else {"dm_inv": np.linalg.inv(shape)}),
         bias=model.lt_inp.bias, x0=model.x0(), f_load_sub=f_sub,
         Lin=plan._Lin, Lout=plan._Lout, loc_rows=plan._loc_rows,
         loc_cols=plan._loc_cols, slot_pos=plan.slot_pos,
