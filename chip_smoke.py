@@ -6,17 +6,26 @@
 Phases, each timed:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build: one ``nvcc`` call compiles every ``sanm_tpu_torch/csrc/*.cu``
-   into the gitignored ``sanm_tpu_torch/_build/``;
+2. build: ``nvcc`` compiles every ``sanm_tpu_torch/csrc/*.cu``, one
+   process per source, all started together, and links them into the
+   gitignored ``sanm_tpu_torch/_build/``;
 3. slice: ``gravity`` on ``configs/armadillo_small.json`` (NHC, order 20,
    Pade on) through the port's entry point with ``"solver": "host_lu"``
-   (host SuperLU), cold, to force-RMS <= 1e-10; K1-K3 must launch in
-   that run;
+   (host SuperLU), cold, to force-RMS <= 1e-10, with the JAX package's
+   restarts and displacement (``ARMADILLO_DISPLACEMENT``, 1e-9 relative);
+   K1-K3 must launch in that run;
 4. band: the same task with ``"solver": "band_chol"`` (the card's
    skyline band Cholesky, the path ``auto`` takes on the card), cold and
    warm: force-RMS <= 1e-10, no inverted element, no fallback to host
-   LU, coordinates within ``BAND_COORD_RTOL`` of the slice's, and every
-   one of the eight kernels launched in that run;
+   LU, coordinates within ``BAND_COORD_RTOL`` of the slice's, the JAX
+   package's restarts and displacement, and every one of the eight
+   kernels launched in that run;
+4b. direct: the same task with ``"solver": "dense_chol"`` (the K6 dense
+   blocked Cholesky) and with ``"solver": "spike_band"`` (the K7 SPIKE
+   partitioned band), each cold and warm, with the checks of 4 and K6b/c
+   or K5a/b + K7b/c launched; the plan sizes, the peak card memory (the
+   dense phase fails above 1.5 factors) and the factor, solve,
+   refinement and step times are printed;
 5. kernels: K1, K2 (remap_in, remap_out), K3, K4 (element_matvec) and
    K5 (band_assemble, band_factor, band_solve) are each held against
    their plain PyTorch version on the armadillo-small model state, with
@@ -25,7 +34,11 @@ Phases, each timed:
    on every K1 bias, K1 along a real first ANM restart (bias orders
    2..20); kernel, plain and (where one PyTorch call computes the same
    function) library times, and the least time the card could take
-   (``bound``);
+   (``bound``); K6b (dense_factor) and K6c (dense_solve) on the dense
+   matrix of the same Jacobian, K7b (spike_rhs_solve) on its SPIKE
+   spikes' right-hand sides and K7c (spike_solve) on the scaled load,
+   with the band rows' dense library times as their yardsticks (K7b: a
+   batched cholesky_solve with the dense local factors);
 6. arap: ``gravity`` on armadillo-small with ``override_arap.json`` and
    ``override_stiff_material.json`` (ARAP, the reference protocol's
    cell), with ``"solver": "host_lu"`` (cold) and with
@@ -68,8 +81,8 @@ Phases, each timed:
    against theirs;
 12. parity: NHC, NHI and ARAP equilibria of a small cuboid, order 20,
    solved through the kernels and through the plain versions on the CPU,
-   with host LU and with the band solver: same iterations, coordinates
-   within ``PARITY_RTOL``;
+   with host LU, the band, the dense and the SPIKE solvers: same
+   iterations, coordinates within ``PARITY_RTOL``;
 13. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
 
@@ -118,6 +131,17 @@ import time
 BUDGET_S = 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "armadillo_small.json")
+# the JAX package's relative displacement of armadillo-small NHC gravity on
+# the CPU (f64, host LU, 2 restarts, force-RMS 6.55e-14), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/armadillo_small.json
+# (the stat JSON armadillo-small-i0-neohookean_c.json); the card's must
+# agree to 1e-9 relative on every solver
+ARMADILLO_DISPLACEMENT = 0.05313850203213072
+ARMADILLO_RESTARTS = 2
+# the device direct solvers besides band_chol and the kernels each runs
+DIRECT_KERNELS = {"dense_chol": ("dense_factor", "dense_solve"),
+                  "spike_band": ("spike_rhs_solve", "spike_solve")}
 # the ARAP cell: armadillo-small with the ARAP and stiff-material overrides
 ARAP_CONFIGS = [CONFIG] + [os.path.join(ROOT, "configs", f) for f in (
     "override_arap.json", "override_stiff_material.json")]
@@ -186,8 +210,9 @@ PEAK_F64_TC_S = 67e12
 # kernel vs plain, max |diff| / max |plain| (per component group for K1):
 # f64 sums in another order (and with fused multiply-adds) than torch's;
 # band_assemble computes the same products (1/sqrt on the card, rsqrt in
-# torch); band_factor's Cholesky and triangular inverses round in
-# another order, which the blocks' conditioning amplifies; svd_w is
+# torch); band_factor's and dense_factor's Cholesky and triangular
+# inverses round in another order, which the blocks' conditioning
+# amplifies; svd_w is
 # compared on s, W and the stretch U diag(|s|) U^T (U alone is not unique
 # where singular values nearly tie), arap_step per component group through
 # 19 orders of recurrences
@@ -196,7 +221,9 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "band_factor": 1e-10, "band_solve": 1e-12, "svd_w": 1e-12,
        "arap_step": 1e-11, "jac_asm_arap": 1e-12, "nhi_step": 1e-11,
        "jac_asm_nhi": 1e-12, "grad_t": 1e-12, "inv_nhc_step": 1e-11,
-       "inv_nhi_step": 1e-11, "jac_asm_inv": 1e-12, "jac_asm_inv_nhi": 1e-12}
+       "inv_nhi_step": 1e-11, "jac_asm_inv": 1e-12, "jac_asm_inv_nhi": 1e-12,
+       "dense_factor": 1e-10, "dense_solve": 1e-12, "spike_rhs_solve": 1e-12,
+       "spike_solve": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -215,6 +242,7 @@ NHI_KERNELS = ("nhi_step", "jac_asm_nhi")
 DEFORM_KERNELS = ("grad_t",)
 INV_KERNELS = ("inv_nhc_step", "inv_nhi_step", "jac_asm_inv",
                "jac_asm_inv_nhi")
+DIRECT_KERNEL_NAMES = sum(DIRECT_KERNELS.values(), ())
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -234,6 +262,10 @@ REPLACES = {
     "inv_nhi_step": "sanm_tpu/taylor_scan.py:543",
     "jac_asm_inv": "sanm_tpu/solver/anm.py:278",
     "jac_asm_inv_nhi": "sanm_tpu/taylor.py:611",
+    "dense_factor": "sanm_tpu/solver/linear.py:305",
+    "dense_solve": "sanm_tpu/solver/linear.py:364",
+    "spike_rhs_solve": "sanm_tpu/solver/spike.py:237",
+    "spike_solve": "sanm_tpu/solver/spike.py:375",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -254,6 +286,10 @@ SOURCES = {
     "inv_nhi_step": "sanm_tpu_torch/csrc/inv_series.cu",
     "jac_asm_inv": "sanm_tpu_torch/csrc/jac_asm.cu",
     "jac_asm_inv_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "dense_factor": "sanm_tpu_torch/csrc/dense_chol.cu",
+    "dense_solve": "sanm_tpu_torch/csrc/dense_chol.cu",
+    "spike_rhs_solve": "sanm_tpu_torch/csrc/spike.cu",
+    "spike_solve": "sanm_tpu_torch/csrc/spike.cu",
 }
 
 _T0 = time.perf_counter()
@@ -352,17 +388,27 @@ class Timing:
             total += s.elapsed_time(e)
         return total
 
+    #: measurements of a kernel_ms reading at most: a host stall (the
+    #: process descheduled on the shared host) during one of them is
+    #: measured again, and every reading kept was covered by the spin
+    TRIES = 3
+
     def kernel_ms(self, fn, reps=10, warmup=2, cover_cycles=None):
         """Device time of a kernel wrapper; fails if its host work was not
         hidden behind the spin (of ``cover_cycles``, default
-        ``COVER_CYCLES``)."""
-        t = self.ms(fn, reps, warmup, cover_cycles=cover_cycles)
+        ``COVER_CYCLES``) in ``TRIES`` measurements."""
         cover = self.cover_ms * (cover_cycles or self.COVER_CYCLES) \
             / self.COVER_CYCLES
-        require(self.host_ms < cover,
-                "host work of a timed launch (%.3f ms) not covered by the "
-                "spin (%.3f ms)" % (self.host_ms, cover))
-        return t
+        for _ in range(self.TRIES):
+            t = self.ms(fn, reps, warmup, cover_cycles=cover_cycles)
+            if self.host_ms < cover:
+                return t
+            say("timing: host work of a timed launch (%.3f ms) not covered "
+                "by the spin (%.3f ms); measured again"
+                % (self.host_ms, cover))
+        require(False, "host work of a timed launch (%.3f ms) not covered "
+                "by the spin (%.3f ms) in %d measurements"
+                % (self.host_ms, cover, self.TRIES))
 
     def graph_ms(self, fn, reps=10, setup=None):
         """Device time of a wrapper that launches many kernels (the band
@@ -495,7 +541,7 @@ def phase_build():
     info = kernels.BUILD_INFO
     say("build: %s in %.2f s (%s)" % (
         os.path.relpath(info["path"], ROOT), info["seconds"],
-        "cached" if info["cached"] else "one nvcc call"))
+        "cached" if info["cached"] else "nvcc, one process per source"))
     for line in info.get("report", "").splitlines():
         if "registers" in line or "spill" in line:
             say("  ptxas:", line.strip())
@@ -698,7 +744,8 @@ def phase_kernels(torch, timing, verts_eq):
            bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
                            asm.nz_ptr, asm.nz_slot, E, data), flops))
     del data_p, E_p
-    band_rows(torch, timing, model, data, E, x_eq, f_load, report)
+    libs = band_rows(torch, timing, model, data, E, x_eq, f_load, report)
+    direct_rows(torch, timing, model, data, f_load, report, *libs)
     del data, E
 
     # ---- K2 remap_out on the stress at the equilibrium; its error is
@@ -869,6 +916,166 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
            % (s_launch_ms, err_lib_s))
     del panels
     torch.cuda.empty_cache()
+    return f_lib_ms, s_lib
+
+
+def max_tril_diff(torch, A, B, rows=2048):
+    """max |tril(A) - tril(B)| and max |tril(B)| of two (N, N) matrices,
+    a slab of rows at a time (no N x N temporary)."""
+    err = ref = 0.0
+    for r0 in range(0, A.shape[0], rows):
+        a = torch.tril(A[r0:r0 + rows], r0)
+        b = torch.tril(B[r0:r0 + rows], r0)
+        err = max(err, float((a - b).abs().max()))
+        ref = max(ref, float(b.abs().max()))
+    return err, err / ref
+
+
+def local_dense(torch, sp, Bloc):
+    """Each SPIKE partition's matrix (P, m, m), dense, from its band
+    storage ``Bloc`` (the lower triangle, mirrored)."""
+    m, s, w = sp.m, sp.s, sp.w
+    r = torch.arange(m, device="cuda")[:, None]
+    c = (r // s - w) * s + torch.arange(sp.W, device="cuda")[None, :]
+    keep = (c >= 0) & (c <= r)
+    rr, cc = r.expand(-1, sp.W)[keep], c[keep]
+    A = torch.zeros((sp.P, m, m), dtype=Bloc.dtype, device="cuda")
+    for p in range(sp.P):
+        v = Bloc[p, :m][keep]
+        A[p, cc, rr] = v
+        A[p, rr, cc] = v
+    return A
+
+
+def direct_rows(torch, timing, model, data, f_load, report, f_lib_ms,
+                s_lib_ms):
+    """K6 and K7 on the Jacobian ``data`` at the equilibrium: the dense
+    factor of its dense matrix and the solve of the scaled load, the SPIKE
+    spikes' substitution (the W spikes of the factor) and the SPIKE solve
+    of the scaled load, each against its plain version.  The library
+    times of K6b, K6c and K7c are those of the band rows' dense Cholesky
+    and cholesky_solve (the same functions of the same matrix), not
+    measured again; K7b's is a batched cholesky_solve with the dense
+    local factors."""
+    from sanm_tpu_torch.solver import linear as K6
+    from sanm_tpu_torch.solver import spike as K7
+    from sanm_tpu_torch.solver.assemble import DensePlan, dense_assemble
+
+    f64 = torch.float64
+    asm = model.asm
+    n = asm.n
+    t0 = time.perf_counter()
+
+    # ---- K6b dense_factor: the kernel overwrites its matrix, which setup
+    # restores from the pristine copy ----
+    dp = DensePlan(asm.csr_rowidx, asm.csr_cols, n)
+    M, scale = dense_assemble(dp, data)
+    work = torch.empty_like(M)
+
+    def restore():
+        work.copy_(M)
+
+    f_ms = timing.graph_ms(lambda: K6.dense_factor(dp, work), reps=2,
+                           setup=restore)
+    restore()
+    inv = K6.dense_factor(dp, work)
+    require(K6.dense_factor_ok(inv), "dense factor not finite")
+    plain = {}
+    f_plain_ms = timing.ms(
+        lambda: plain.update(inv=K6.dense_factor_plain(dp, M)), reps=1,
+        warmup=0)
+    e_l, r_l = max_tril_diff(torch, work, M)
+    e_i, r_i = rel_err(inv, plain.pop("inv"))
+    del M
+    torch.cuda.empty_cache()
+    tri = 8 * dp.npad * (dp.npad + 1) // 2
+    report("dense_factor", max(e_l, e_i), max(r_l, r_i), f_ms, f_plain_ms,
+           bound_ms(tri * 2 + nbytes(inv), dp.factor_flops(), PEAK_F64_TC_S),
+           f_lib_ms, "(npad %d, %.2f GB; launches back to back in a CUDA "
+           "graph; bound: the lower triangle read and written once; "
+           "library: the band rows' dense torch.linalg.cholesky)"
+           % (dp.npad, 8.0 * dp.npad ** 2 / 1e9))
+
+    # ---- K6c dense_solve of the scaled load ----
+    rhs = torch.as_tensor(f_load, dtype=f64).cuda() * scale
+    ys = K6.dense_solve(dp, work, inv, rhs)
+    e_y, r_y = rel_err(ys, K6.dense_solve_plain(dp, work, inv, rhs))
+    s_ms = timing.graph_ms(lambda: K6.dense_solve(dp, work, inv, rhs))
+    report("dense_solve", e_y, r_y, s_ms,
+           timing.ms(lambda: K6.dense_solve_plain(dp, work, inv, rhs),
+                     reps=2, warmup=1),
+           bound_ms(tri + nbytes(inv, rhs, ys), 2.0 * dp.npad ** 2),
+           s_lib_ms, "(launches back to back in a CUDA graph; the lower "
+           "triangle read once in the bound, twice by the algorithm; "
+           "library: the band rows' torch.cholesky_solve)")
+    del work, inv
+    torch.cuda.empty_cache()
+
+    # ---- K7b spike_rhs_solve: the W spikes' right-hand sides (the
+    # coupling blocks in each partition's top b rows), restored by setup
+    sp = K7.SpikePlan(asm.csr_rowidx, asm.csr_cols, n)
+    Bloc, C, sc = K7.spike_assemble(sp, data)
+    Ld = torch.linalg.cholesky(local_dense(torch, sp, Bloc))
+    panels = K7.spike_local_factor(sp, Bloc)
+    del Bloc
+    P, m, b, s = sp.P, sp.m, sp.b, sp.s
+    R0 = torch.zeros((P, m, b), dtype=f64, device="cuda")
+    R0[1:, :b] = C
+    R = torch.empty_like(R0)
+
+    def restore_r():
+        R.copy_(R0)
+
+    b_ms = timing.graph_ms(lambda: K7.spike_rhs_solve(sp, panels, R),
+                           reps=2, setup=restore_r)
+    restore_r()
+    X = K7.spike_rhs_solve(sp, panels, R)
+    restore_r()
+    b_plain_ms = timing.ms(
+        lambda: plain.update(X=K7.spike_rhs_solve_plain(sp, panels, R)),
+        reps=1, warmup=0)
+    e_x, r_x = rel_err(X, plain.pop("X"))
+    # library: one batched cholesky_solve with the dense local factors
+    b_lib_ms = timing.ms(lambda: torch.cholesky_solve(R0, Ld), reps=2,
+                         warmup=1)
+    e_lib, _ = rel_err(torch.cholesky_solve(R0, Ld), X)
+    del X, R, Ld
+    # the work this input needs: the partitions whose right-hand sides are
+    # not zero (all but partition 0), per block column the diagonal
+    # product and the panel product, forward and backward, on b columns;
+    # their panels read once, R read and X written once
+    live = [p for p in range(P) if bool(R0[p].any())]
+    flops = 4.0 * s * s * b * float((1 + sp.blk_w[live]).sum())
+    report("spike_rhs_solve", e_x, r_x, b_ms, b_plain_ms,
+           bound_ms(sum(nbytes(sp.panels_of(panels, p)) for p in live)
+                    + 2 * nbytes(R0), flops, PEAK_F64_TC_S),
+           b_lib_ms,
+           "(P=%d partitions x m=%d rows x b=%d columns, %d of them with "
+           "right-hand sides in the bound; launches back to back in a CUDA "
+           "graph; library: torch.cholesky_solve with the dense local "
+           "factors, err %.1e)" % (P, m, b, len(live), e_lib))
+    del R0
+    torch.cuda.empty_cache()
+
+    # ---- K7c spike_solve of the scaled load ----
+    F = K7.spike_factor(sp, panels, C)
+    require(F.ok(), "SPIKE factor not finite")
+    rhs = torch.as_tensor(f_load, dtype=f64).cuda() * sc
+    ys = K7.spike_solve(sp, F, rhs)
+    e_y, r_y = rel_err(ys, K7.spike_solve_plain(sp, F, rhs))
+    s_ms = timing.graph_ms(lambda: K7.spike_solve(sp, F, rhs))
+    reads = nbytes(F.panels, F.V, F.W, F.LU, F.lu_perm, F.invL, F.invUt,
+                   F.G, F.Mh, rhs, ys)
+    flops = 2.0 * (2 * P * m * b + 6 * P * b * b + 2 * F.panels.numel())
+    report("spike_solve", e_y, r_y, s_ms,
+           timing.ms(lambda: K7.spike_solve_plain(sp, F, rhs), reps=2,
+                     warmup=1),
+           bound_ms(reads, flops), s_lib_ms,
+           "(launches back to back in a CUDA graph; library: the band "
+           "rows' torch.cholesky_solve with the dense factor)")
+    del F, panels, C
+    torch.cuda.empty_cache()
+    say("direct kernels: %.2f s" % (time.perf_counter() - t0))
 
 
 def cuboid_solve(device, solver, energy_model):
@@ -908,7 +1115,7 @@ def phase_parity():
     t0 = time.perf_counter()
     threads = torch.get_num_threads()
     for em in ("neohookean_c", "neohookean_i", "arap"):
-        for solver in ("host_lu", "band_chol"):
+        for solver in ("host_lu", "band_chol", "dense_chol", "spike_band"):
             it_c, x_c, rms_c = cuboid_solve("cuda", solver, em)
             # the plain band factor is many small BLAS calls, which a pool
             # of CPU threads slows down
@@ -997,6 +1204,21 @@ def run_gravity(torch, solver, configs=(CONFIG,), label=None,
     return res, launches, per
 
 
+def check_armadillo(label, st):
+    """armadillo-small NHC gravity's restarts and displacement against the
+    JAX package's on the CPU."""
+    rel = (abs(st["displacement"] - ARMADILLO_DISPLACEMENT)
+           / ARMADILLO_DISPLACEMENT)
+    say("%s: restarts %d (JAX package on the CPU: %d); displacement %.16g "
+        "vs the JAX package's %.16g: rel diff %.3e (tol 1e-9)"
+        % (label, st["iter"], ARMADILLO_RESTARTS, st["displacement"],
+           ARMADILLO_DISPLACEMENT, rel))
+    require(st["iter"] == ARMADILLO_RESTARTS, "armadillo-small restarts "
+            "differ from the JAX package's")
+    require(rel <= 1e-9, "armadillo-small displacement differs from the "
+            "JAX package's")
+
+
 def phase_slice(torch):
     """The first slice's path: host SuperLU, cold only (its warm
     re-solve left the script for the NHI phase's time)."""
@@ -1014,6 +1236,7 @@ def phase_slice(torch):
     for name in ("nhc_step", "remap_in", "remap_out", "jac_asm"):
         require(launches[name] > 0, "kernel %s was not launched on the "
                 "host_lu path" % name)
+    check_armadillo("host_lu", res.stat)
     phase_done("slice", t0)
     return launches, res.stat, res.mesh.vertices
 
@@ -1050,8 +1273,74 @@ def phase_band(torch, verts_lu, verts_rest):
     for name in KERNELS:
         require(launches[name] > 0, "kernel %s was not launched on the "
                 "band_chol path" % name)
+    check_armadillo("band_chol", st)
     phase_done("band", t0)
     return launches, res.stat, verts, solver
+
+
+def phase_direct(torch, verts_lu, verts_rest):
+    """armadillo-small NHC gravity on the dense and the SPIKE device
+    factors, cold and warm: the restarts and displacement of the JAX
+    package, no fallback, the path's kernels launched, the equilibrium
+    within ``BAND_COORD_RTOL`` of host LU's, and the peak card memory
+    over the phase's start (dense_chol: at most 1.5 factors).  Returns
+    each run's launch counts and stat."""
+    import numpy as np
+
+    out = {}
+    for mode, names in DIRECT_KERNELS.items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, per = run_gravity(torch, mode)
+        peak = torch.cuda.max_memory_allocated() - base
+        plan = res.solver._fact["solver"].plan
+        say("%s: peak card memory allocated over the phase's start %.3f GB "
+            "(the factor %.3f GB)" % (mode, peak / 1e9,
+                                      plan.mem_bytes() / 1e9))
+        if mode == "dense_chol":
+            # a restart frees the old factor before it builds the new one
+            require(peak <= 1.5 * plan.mem_bytes(),
+                    "two dense factors alive at once")
+        if mode == "dense_chol":
+            say("%s plan: s=%d nb=%d npad=%d; matrix %.3f GB, %.4e f64 "
+                "operations" % (mode, plan.s, plan.nb, plan.npad,
+                                plan.mem_bytes() / 1e9, plan.factor_flops()))
+        else:
+            z = plan.sizes_bytes()
+            say("%s plan: s=%d w=%d b=%d P=%d m=%d rows_loc=%d, reach max %s "
+                "mean %s blocks; GB: local panels %.3f, spikes %.3f, reduced "
+                "%.3f (factor %.3f), working bands %.3f" % (
+                    mode, plan.s, plan.w, plan.b, plan.P, plan.m,
+                    plan.rows_loc, plan.blk_w.max(axis=1).tolist(),
+                    np.round(plan.blk_w.mean(axis=1), 2).tolist(),
+                    z["panels"] / 1e9, z["spikes"] / 1e9, z["reduced"] / 1e9,
+                    plan.mem_bytes() / 1e9, z["work"] / 1e9))
+        band_line(mode, res, launches, per, names[1])
+        st = res.stat
+        require(not any(st["band_fallbacks"].values())
+                and st["expansions"]["host_lu"] == 0,
+                "the %s path fell back to host LU" % mode)
+        for name in KERNELS[:4] + ("element_matvec", "band_assemble") + names:
+            require(launches[name] > 0, "kernel %s was not launched on the "
+                    "%s path" % (name, mode))
+        if mode == "spike_band":
+            require(launches["band_factor"] > 0, "the local band factors "
+                    "did not run")
+        disp = float(np.abs(verts_lu - verts_rest).max())
+        diff = float(np.abs(res.mesh.vertices - verts_lu).max()) / disp
+        say("%s: coordinates vs host_lu: max diff / max displacement %.3e "
+            "(tol %.0e)" % (mode, diff, BAND_COORD_RTOL))
+        require(diff <= BAND_COORD_RTOL, "%s and host-LU equilibria differ"
+                % mode)
+        check_armadillo(mode, st)
+        out[mode] = (launches, st)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done(mode, t0)
+    return out
 
 
 def phase_arap(torch, verts_rest):
@@ -1101,12 +1390,14 @@ def phase_arap(torch, verts_rest):
     return out["band_chol"][1], stats, verts
 
 
-def band_line(label, res, launches, per):
-    """Print the band path's fallbacks, refinement trips and scopes of a
-    gravity run; returns the refinement trips per solve."""
+def band_line(label, res, launches, per, solve_kernel="band_solve"):
+    """Print a device factor's fallbacks, refinement trips and scopes of a
+    gravity run (``solve_kernel``: the factor's substitution); returns the
+    refinement trips per solve."""
     st = res.stat
     solves = per["sparse_solve"][0]
-    trips = launches["band_solve"] / solves - 1 if solves else float("nan")
+    trips = (launches[solve_kernel] / solves - 1 if solves
+             else float("nan"))
     say("%s: expansions %s, fallbacks to host LU %s at (restart, kind) %s; "
         "refinement trips/solve=%.3f  factor s/restart=%.4f (%d)  solve "
         "ms/solve=%.4f (%d)  step ms/order=%.4f (%d)  jac+start "
@@ -1387,7 +1678,7 @@ def phase_deform_kernels(torch, timing, device="cuda"):
     from sanm_tpu_torch.fea import app
     from sanm_tpu_torch.ops import svd_w as K8a
     from sanm_tpu_torch.solver import assemble as K23
-    from sanm_tpu_torch.solver.band import band_plan_for
+    from sanm_tpu_torch.solver.band import BandPlan
 
     t0 = time.perf_counter()
     rows = {}
@@ -1401,7 +1692,7 @@ def phase_deform_kernels(torch, timing, device="cuda"):
     gin = K23.remap_in(asm, asm.pad_vector(np.append(model.x0(), 0.0)))
     data, gt, E = model.jac_asm(gin)
     n_t = int(asm.t_slot.numel())
-    plan = band_plan_for(asm.csr_rowidx, asm.csr_cols, asm.n)
+    plan = K23.plan_for(BandPlan, asm.csr_rowidx, asm.csr_cols, asm.n)
     say("deform model: %d fixed vertices, %d of them moved; B=%d n=%d "
         "nnz=%d Din=%d Dout=%d, %d t-column slots in %d rows; max |grad_t| "
         "%.3e; band plan: s=%d bw=%d nb=%d mean reach %.2f blocks, factor "
@@ -1867,6 +2158,7 @@ def main(argv):
     launches, stat, verts_eq, band_solver = phase_band(
         torch, verts_lu, verts_rest)
     torch.cuda.empty_cache()
+    direct = phase_direct(torch, verts_lu, verts_rest)
     launches_arap, stats_arap, verts_arap = phase_arap(torch, verts_rest)
     torch.cuda.empty_cache()
     res_nhi, launches_nhi, stats_nhi = phase_nhi(torch)
@@ -1893,16 +2185,21 @@ def main(argv):
     del band_solver
     kern = []
     for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS
-                 + INV_KERNELS):
+                 + INV_KERNELS + DIRECT_KERNEL_NAMES):
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
         # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t,
-        # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i
+        # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i,
+        # the NHC dense_chol and spike_band phases for K6 and K7
         runs = (launches_arap if name in ARAP_KERNELS else
                 launches_nhi if name in NHI_KERNELS else
                 launches_deform if name in DEFORM_KERNELS else
-                launches_inv if name in INV_KERNELS else launches)
+                launches_inv if name in INV_KERNELS else
+                direct["dense_chol"][0] if name in DIRECT_KERNELS[
+                    "dense_chol"] else
+                direct["spike_band"][0] if name in DIRECT_KERNELS[
+                    "spike_band"] else launches)
         kern.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=runs[name],
@@ -1911,6 +2208,8 @@ def main(argv):
             library_ms=r["library_ms"]))
     say("build_s=%.2f total_s=%.2f" % (build_s, time.perf_counter() - _T0))
     write_out(out_dir, {"band_chol": stat, "host_lu": stat_lu,
+                        "dense_chol": direct["dense_chol"][1],
+                        "spike_band": direct["spike_band"][1],
                         "arap": stats_arap, "nhi": stats_nhi,
                         "deform": stats_deform, "inverse": stats_inv,
                         "invcheck": stat_invcheck})

@@ -153,6 +153,46 @@ int sanm_jac_asm_inv_nhi(const double* gin0, const double* bias,
                          int64_t B, int Dout, int Din, int64_t nnz,
                          double mu, double kappa, void* stream);
 
+// K6b: dense blocked Cholesky of A (npad x npad, npad = nb s, row-major,
+// lower triangle read, overwritten by L) and the inverses of its diagonal
+// blocks inv (nb, s, s); T is a scratch panel of (nb - 1) s x s.  s = 128.
+int sanm_dense_factor(double* A, double* inv, double* T, int64_t nb,
+                      void* stream);
+
+// K6c: out = (L L^T)^-1 rhs: rhs (n) zero-extended to work (npad), forward
+// and backward substitution against the lower triangle of L and inv,
+// out = work[0:n].  partial holds ceil((npad - s) / 64) rows of s doubles.
+int sanm_dense_solve(const double* L, const double* inv, const double* rhs,
+                     double* work, double* partial, double* out, int64_t n,
+                     int64_t nb, void* stream);
+
+// K7b: X = blkdiag(L_p L_p^T)^-1 R for the P partitions' local factors
+// (panel j of partition p at panels + off[p mb + j], blk_w[p mb + j]
+// subdiagonal blocks; off and blk_w on the card, wmax (mb) = the largest
+// reach of each block column over the partitions, on the HOST); R and X
+// (P, mb s, k), R overwritten; Z scratch (P, s, k).  k a multiple of 64.
+int sanm_spike_rhs_solve(const double* panels, const int64_t* off,
+                         const int64_t* blk_w, const int64_t* wmax,
+                         double* R, double* X, double* Z, int64_t P,
+                         int64_t mb, int64_t k, void* stream);
+
+// K7c: out = A^-1 rhs through the SPIKE factor: rhs (n) gathered by
+// perm_ext into work (P m), the local substitutions (as K7b's), the
+// reduced block-Thomas recursion with V, W (P, m, b), LU (P, b, b) and its
+// row permutations lu_perm (P, b), invL / invUt (P, b / s, s, s), G
+// (P, b, b), Mh (2, P, b, b), the recombination, out[i] =
+// work[invp_ext[i]].  partial (P, ceil(max reach s / 64), s), red
+// (3 + 4P, b) scratch; wmax on the HOST.
+int sanm_spike_solve(const double* panels, const int64_t* off,
+                     const int64_t* blk_w, const int64_t* wmax,
+                     const double* V, const double* W, const double* LU,
+                     const int32_t* lu_perm, const double* invL,
+                     const double* invUt, const double* G, const double* Mh,
+                     const int32_t* perm_ext, const int32_t* invp_ext,
+                     const double* rhs, double* work, double* partial,
+                     double* red, double* out, int64_t n, int64_t P,
+                     int64_t mb, int64_t b, void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

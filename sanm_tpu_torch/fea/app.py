@@ -24,8 +24,14 @@ and ``configs/test_single_tet_inverse.json`` for the single tet; with
 ``invcheck norm`` prints how far that lands from the start.  On the card
 drop ``--device cpu``.  The inverse model's Jacobian is not symmetric, so
 its solve stays on host LU (SuperLU), as in the JAX package: ``auto``
-takes host LU and ``"solver": "band_chol"`` raises.  The baselines and
-``save_interm`` belong to a later slice of the port and raise.
+takes host LU and the Cholesky solvers (``band_chol``, ``dense_chol``,
+``spike_band``) raise.  The baselines, ``save_interm`` and the ``cg``
+solver belong to a later slice of the port and raise.
+
+The solver is the config's ``"solver"`` (``auto``, ``host_lu``,
+``band_chol``, ``dense_chol``, ``spike_band`` or ``dense``), e.g. an
+override file holding ``{"solver": "spike_band"}`` after the task
+config, or the environment's ``SANM_SOLVER``, which takes precedence.
 """
 
 from __future__ import annotations
@@ -101,7 +107,9 @@ def setup_solver_param(config, eqn=False):
     hp.xcoeff_l2_penalty = float(config.get("xcoeff_l2_penalty", 0.0))
     hp.use_pade = not config.get("disable_pade", False)
     hp.sanity_check = not config.get("disable_anm_sanity_check", False)
-    hp.solver = config.get("solver", "auto")
+    # SANM_SOLVER overrides the config, as in the JAX package (the
+    # experiment harness's knob, sanm_tpu/fea/app.py:94-96)
+    hp.solver = os.environ.get("SANM_SOLVER", config.get("solver", "auto"))
     if hp.solver not in SOLVERS:
         raise SANMError("solver %r is not ported yet (ported: %s)"
                         % (hp.solver, ", ".join(SOLVERS)))

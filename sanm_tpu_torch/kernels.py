@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into one shared
-library with a plain C interface (``csrc/sanm_kernels.h``), at first use,
-into ``sanm_tpu_torch/_build/`` (gitignored).  The library's name
+Every ``csrc/*.cu`` is compiled to an object by its own ``nvcc`` process,
+all started together, and the objects are linked by one more into one
+shared library with a plain C interface (``csrc/sanm_kernels.h``), at
+first use, into ``sanm_tpu_torch/_build/`` (gitignored).  The library's name
 carries a hash of the sources and flags, so it is rebuilt only when they
 change.  It is loaded with ctypes; no source includes PyTorch's headers.
 
@@ -31,18 +32,22 @@ from .utils import SANMError
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                          "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 300
+#: the block size s of the Cholesky kernels (K5-K7, ``kBlock`` of
+#: ``csrc/chol_blocks.h``): one s x s f64 block (128 KB) fits one CTA's
+#: shared memory.  Their plans take other sizes only on the CPU.
+BLOCK = 128
 
 LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "element_matvec": 0, "band_assemble": 0, "band_factor": 0,
             "band_solve": 0, "svd_w": 0, "arap_step": 0, "jac_asm_arap": 0,
             "nhi_step": 0, "jac_asm_nhi": 0, "grad_t": 0,
             "inv_nhc_step": 0, "inv_nhi_step": 0, "jac_asm_inv": 0,
-            "jac_asm_inv_nhi": 0}
+            "jac_asm_inv_nhi": 0, "dense_factor": 0, "dense_solve": 0,
+            "spike_rhs_solve": 0, "spike_solve": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -84,6 +89,11 @@ _SIGNATURES = {
                          _I32, _I64, _F64, _F64, _P],
     "sanm_jac_asm_inv_nhi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                              _I32, _I64, _F64, _F64, _P],
+    "sanm_dense_factor": [_P, _P, _P, _I64, _P],
+    "sanm_dense_solve": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "sanm_spike_rhs_solve": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _P],
+    "sanm_spike_solve": [_P] * 19 + [_I64, _I64, _I64, _I64, _P],
 }
 
 
@@ -122,20 +132,49 @@ def build():
         return so
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (so, os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-I", SRC_DIR, "-o", tmp, *cu]
+    tmp = "%s.%d" % (so, os.getpid())
+    objs = ["%s.%s.o" % (tmp, os.path.basename(p)) for p in cu]
     t0 = time.perf_counter()
+    procs = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise SANMError("nvcc timed out after %ds" % NVCC_TIMEOUT_S) from e
-    if res.returncode != 0:
-        raise SANMError("nvcc failed (exit %d): %s\n%s"
-                        % (res.returncode, " ".join(cmd), res.stderr))
-    os.replace(tmp, so)
+        for path, obj in zip(cu, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", SRC_DIR, "-c", "-o", obj, path]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = []
+        for cmd, proc in procs:
+            left = NVCC_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                _, err = proc.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired as e:
+                raise SANMError("nvcc timed out after %ds"
+                                % NVCC_TIMEOUT_S) from e
+            if proc.returncode != 0:
+                raise SANMError("nvcc failed (exit %d): %s\n%s"
+                                % (proc.returncode, " ".join(cmd), err))
+            report.append(err)
+        cmd = [nvcc, *NVCC_ARCH, "-shared", "-o", tmp + ".tmp", *objs]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise SANMError("nvcc timed out after %ds"
+                            % NVCC_TIMEOUT_S) from e
+        if res.returncode != 0:
+            raise SANMError("nvcc failed (exit %d): %s\n%s"
+                            % (res.returncode, " ".join(cmd), res.stderr))
+        os.replace(tmp + ".tmp", so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
-                      cached=False, report=res.stderr)
+                      cached=False, report="".join(report))
     return so
 
 
@@ -180,6 +219,13 @@ def on_card(*tensors) -> bool:
     if types == {"cpu"}:
         return False
     raise SANMError("unsupported device mix %s" % sorted(types))
+
+
+def check_block(s):
+    """Raise unless ``s`` is the block size the Cholesky kernels take."""
+    if s != BLOCK:
+        raise SANMError("the Cholesky kernels take the block size %d, not %d"
+                        % (BLOCK, s))
 
 
 def check(t, name, shape, dtype):

@@ -1,4 +1,4 @@
-"""ANM continuation drivers: the host_lu and band_chol solve paths.
+"""ANM continuation drivers: the host LU and the card's factor solve paths.
 
 Port of the ``host_lu`` + ``hybrid`` path and of the ``band_chol``
 device loop of ``sanm_tpu/solver/anm.py`` (reference
@@ -27,6 +27,13 @@ K8b for ARAP, K3i and K1i for the inverse model.
   host once per restart.  A factor that is not finite, or whose first
   refined solve misses the pre-gate :data:`FACTOR_GATE`, falls back to
   host LU (the latter for the rest of the solve).
+* ``dense_chol`` (the K6 dense blocked Cholesky, ``solver/linear.py``)
+  and ``spike_band`` (the K7 SPIKE partitioned band, ``solver/spike.py``):
+  the same loop, contract and fallbacks as ``band_chol`` with another
+  factor on the card (:data:`DEVICE_FACTORS`).
+* ``dense``: the dense A factored by QR (Cholesky of A^T A + lambda I
+  with the l2 penalty) in plain torch on A's device, as the JAX package
+  calls the library there.
 
 The continuation control (restarts, Pade, convergence) is host Python on
 the (N+1, n+1) coefficient matrix.
@@ -35,8 +42,8 @@ The model here is an
 :class:`~sanm_tpu_torch.fea.model.ElasticForceModel`, forward or inverse;
 its f(x0) is evaluated in f64 on the model's device.  The inverse
 model's Jacobian is not symmetric (``model.symmetric``), so ``auto``
-takes host LU for it and ``band_chol`` raises.  Two kinds of curve share
-the driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
+takes host LU for it and the Cholesky solvers raise.  Two kinds of curve
+share the driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
 :class:`ANMEqnSolver` on top of it), where dH/dt is the vector v, and
 f(x, t) = f(x0, t0) (:class:`ANMImplicitSolver`), whose model reads t
 and whose dH/dt is the t column that K3t assembles with A.
@@ -59,15 +66,25 @@ from ..utils import (
     sanm_assert,
     verbose_mode,
 )
-from .assemble import element_matvec
-from .band import BandPlan, DeviceBandCholSolver, band_plan_for
-from .linear import HostSparseLU
+from .assemble import DensePlan, element_matvec, plan_for
+from .band import BandPlan, DeviceBandCholSolver
+from .linear import DenseFactorSolver, DeviceCholSolver, HostSparseLU
+from .spike import DeviceSpikeBandSolver, SpikePlan
 
-#: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``)
-SOLVERS = ("auto", "host_lu", "band_chol")
-#: the kinds of fallback from the band factor to host LU
+#: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``; ``cg`` is
+#: not ported yet)
+SOLVERS = ("auto", "host_lu", "band_chol", "dense", "dense_chol",
+           "spike_band")
+_DEVICE_SOLVERS = {"band_chol": (DeviceBandCholSolver, BandPlan),
+                   "dense_chol": (DeviceCholSolver, DensePlan),
+                   "spike_band": (DeviceSpikeBandSolver, SpikePlan)}
+#: the solvers whose factor of -(D A D) lives on the device, refined
+#: against the exact operator, with the pre-gate and the fallback to host
+#: LU (``anm.py:423-480``)
+DEVICE_FACTORS = tuple(_DEVICE_SOLVERS)
+#: the kinds of fallback from a device factor to host LU
 FALLBACKS = ("gate", "checks", "not_finite")
-#: factor-quality pre-gate: the first refined band solve's relative
+#: factor-quality pre-gate: the first refined device solve's relative
 #: residual must reach this, or the solve falls back to host LU
 #: (``anm.py:712-740``)
 FACTOR_GATE = 1e-8
@@ -78,9 +95,12 @@ class HyperParam:
     """Reference ``ANMDriverHelper::HyperParam`` (``libsanm/anm.h:100-114``).
 
     ``solver``: ``"host_lu"`` (host SuperLU), ``"band_chol"`` (the card's
-    skyline band Cholesky) or ``"auto"``: ``band_chol`` on the card when
-    its factor and working band fit in half of the card's free memory,
-    else ``host_lu`` (see ``_band_auto_ok``).
+    skyline band Cholesky), ``"dense_chol"`` (the card's dense blocked
+    Cholesky), ``"spike_band"`` (the card's SPIKE partitioned band),
+    ``"dense"`` (dense QR in plain torch) or ``"auto"``: ``band_chol`` on
+    the card when its factor and working band fit in half of the card's
+    free memory, else ``host_lu`` (see ``_band_auto_ok``); ``auto`` never
+    takes the other three.
     ``fact_reuse_rel_step``: reuse the previous restart's factorization
     when the start point moved by less than this relative step (0
     disables)."""
@@ -104,8 +124,8 @@ class EqnHyperParam(HyperParam):
 
 def resolved_solver(expansions):
     """The solver that ran the counted ``expansions`` ({solver: count}):
-    ``band_chol`` or ``host_lu``, ``mixed`` when both did (after a
-    fallback), None before the first."""
+    a device factor's name or ``host_lu``, ``mixed`` when both did (after
+    a fallback), None before the first."""
     ran = [m for m, c in expansions.items() if c]
     return ran[0] if len(ran) == 1 else ("mixed" if ran else None)
 
@@ -118,11 +138,11 @@ class _ANMDriverBase:
         sanm_assert(self.hp.order >= 2, "order=%d", self.hp.order)
         sanm_assert(self.hp.solver in SOLVERS, "solver %r is not ported",
                     self.hp.solver)
-        if self.hp.solver == "band_chol" and not model.symmetric:
+        if self.hp.solver in DEVICE_FACTORS and not model.symmetric:
             raise SANMError(
-                "solver band_chol factors -(D A D) by Cholesky, which needs "
-                "a symmetric Jacobian A; this model's (the inverse model's) "
-                "is not symmetric: use host_lu or auto")
+                "solver %s factors -(D A D) by Cholesky, which needs a "
+                "symmetric Jacobian A; this model's (the inverse model's) "
+                "is not symmetric: use host_lu or auto" % self.hp.solver)
         self.model = model
         self.asm = model.asm
         self.n = int(n_unknown)
@@ -131,8 +151,8 @@ class _ANMDriverBase:
         self._series = model.series(self.hp.order)
         self._fact = None
         self._last_fact_reused = False
-        # band_chol state: the host plan (topology-static), the auto
-        # decision, the sticky host-LU override, the band factor's
+        # device-factor state: the host plans (topology-static), the auto
+        # decision, the sticky host-LU override, the device factor's
         # fallbacks to host LU (a missed pre-gate, an expansion that failed
         # its checks, a factor that is not finite) and the expansions each
         # solver ran, over the solver's life
@@ -143,7 +163,11 @@ class _ANMDriverBase:
         # (restart, kind) of each fallback, kind one of FALLBACKS;
         # restarts count over the solver's life, 1-based
         self.band_fallback_log = []
-        self.expansions = {"band_chol": 0, "host_lu": 0}
+        # the expansions of the configured solver (auto and host_lu: of
+        # band_chol, as before the other solvers were ported) and of host LU
+        first = (self.hp.solver if self.hp.solver not in ("auto", "host_lu")
+                 else "band_chol")
+        self.expansions = {first: 0, "host_lu": 0}
 
         self._iter = 0
         self.xt0 = None  # np (n+1,)
@@ -213,8 +237,9 @@ class _ANMDriverBase:
 
     @property
     def _factor_gate_fails(self):
-        """Band factors that missed the pre-gate or whose expansion failed
-        its checks (the JAX package's count; each sets the override)."""
+        """Device factors that missed the pre-gate or whose expansion
+        failed its checks (the JAX package's count over every device mode;
+        each sets the override)."""
         return self.band_fallbacks["gate"] + self.band_fallbacks["checks"]
 
     def solver_resolved(self):
@@ -247,7 +272,7 @@ class _ANMDriverBase:
 
     @property
     def band_fallbacks(self):
-        """The band factor's fallbacks to host LU by kind: a missed
+        """The device factor's fallbacks to host LU by kind: a missed
         pre-gate, an expansion that failed its checks, a factor that is
         not finite."""
         out = dict.fromkeys(FALLBACKS, 0)
@@ -257,21 +282,30 @@ class _ANMDriverBase:
 
     def band_plan(self) -> BandPlan:
         """The band solver's host plan (the sparsity is topology-static,
-        so solvers of one pattern share it, :func:`band_plan_for`)."""
+        so solvers of one pattern share it, :func:`~sanm_tpu_torch.solver.
+        assemble.plan_for`)."""
         if self._band_plan is None:
-            self._band_plan = band_plan_for(self.asm.csr_rowidx,
-                                            self.asm.csr_cols, self.n)
+            self._band_plan = plan_for(BandPlan, self.asm.csr_rowidx,
+                                       self.asm.csr_cols, self.n)
         return self._band_plan
 
     def _factorize(self, mode, data, E):
         """The solver of one expansion from the CSR values ``data`` and
-        the element stiffness ``E``: the card's band factor (None when it
-        is not finite) or host SuperLU."""
+        the element stiffness ``E``: a device factor (None when it is not
+        finite), the dense QR or host SuperLU (``anm.py:1245-1275``)."""
         asm = self.asm
-        if mode == "band_chol":
-            solver = DeviceBandCholSolver(
-                self.band_plan(), data, partial(element_matvec, asm, E))
+        if mode in DEVICE_FACTORS:
+            cls, plan_cls = _DEVICE_SOLVERS[mode]
+            solver = cls(plan_for(plan_cls, asm.csr_rowidx, asm.csr_cols,
+                                  self.n),
+                         data, partial(element_matvec, asm, E))
             return solver if solver.factor_ok() else None
+        if mode == "dense":
+            A = torch.zeros((self.n, self.n), dtype=torch.float64,
+                            device=data.device)
+            A[torch.as_tensor(asm.csr_rowidx, dtype=torch.long),
+              torch.as_tensor(asm.csr_cols, dtype=torch.long)] = data
+            return DenseFactorSolver(A, self.hp.xcoeff_l2_penalty)
         import scipy.sparse as sp
 
         A = sp.csr_matrix((data.cpu().numpy(),
@@ -281,18 +315,22 @@ class _ANMDriverBase:
 
     def _expand(self, xt0_np, v_np, mode=None):
         """Full expansion (``anm.py:423-537,670-750``): the device graph
-        passes, the linear solves (on the card for band_chol, on the host
-        for host_lu), the t_k / x_k recurrence and the sanity residuals on
-        device tensors.  Returns ``(coeffs, diag)`` as NumPy.  A band
-        factor that is not finite hands this restart to host LU; one whose
-        first refined solve misses the pre-gate hands it the rest of the
-        solve."""
+        passes, the linear solves (on the card for the device factors, on
+        the host for host_lu), the t_k / x_k recurrence and the sanity
+        residuals on device tensors.  Returns ``(coeffs, diag)`` as NumPy.
+        A device factor that is not finite hands this restart to host LU;
+        one whose first refined solve misses the pre-gate hands it the
+        rest of the solve.  With the l2 penalty the device factors (which
+        refuse Tikhonov mode) leave the solve to host LU, as in the JAX
+        package; ``dense`` keeps it."""
         hp = self.hp
         n = self.n
         asm = self.asm
         pen = hp.xcoeff_l2_penalty
         if mode is None:
-            mode = "host_lu" if pen else self._solver_mode()
+            mode = self._solver_mode()
+            if pen and mode in DEVICE_FACTORS:
+                mode = "host_lu"
         self._last_mode = mode
         fact = self._fact
         if fact is not None and fact["mode"] != mode:
@@ -307,15 +345,17 @@ class _ANMDriverBase:
         if reuse:
             solver, gt_asm = fact["solver"], fact["gt"]
         else:
-            self._fact = None  # free the old factor before the new one
+            # free the old factor before the new one (the local reference
+            # too: a dense factor is 11.6 GB at armadillo-small)
+            fact = self._fact = None
             with ScopedProfiler("sparse_prep", block=True):
                 solver = self._factorize(mode, data, E)
                 del data, E
             if solver is None:
                 self._count_fallback("not_finite")
                 if verbose_mode():
-                    print("band_chol: indefinite stiffness; host-LU "
-                          "fallback")
+                    print("%s: indefinite stiffness; host-LU fallback"
+                          % mode)
                 return self._expand(xt0_np, v_np, "host_lu")
             self._fact = {"mode": mode, "x0": xt0_np[: self._ncmp()].copy(),
                           "solver": solver, "gt": gt_asm}
@@ -324,19 +364,20 @@ class _ANMDriverBase:
         else:
             grad_t = torch.as_tensor(v_np, dtype=torch.float64).to(
                 asm.device)
-        if mode == "band_chol":
+        if mode in DEVICE_FACTORS:
             xgt, gate = solver.solve(grad_t, with_resid=True)
             gate = float(gate)
             if not gate <= FACTOR_GATE:
                 # the first refined solve doubles as the factor-quality
                 # pre-gate: host LU for the rest of this solve (cleared
                 # by reset); auto stops taking band_chol after two strikes
+                # (of any device factor)
                 self._count_fallback("gate")
                 self._solver_override = "host_lu"
-                self._fact = None
+                fact = self._fact = solver = None
                 if verbose_mode():
-                    print("band_chol factor pre-gate failed (resid %g > "
-                          "%g); host-LU fallback" % (gate, FACTOR_GATE))
+                    print("%s factor pre-gate failed (resid %g > %g); "
+                          "host-LU fallback" % (mode, gate, FACTOR_GATE))
                 return self._expand(xt0_np, v_np)
         else:
             xgt = solver.solve(grad_t)
@@ -392,13 +433,13 @@ class _ANMDriverBase:
                     # redo this restart with a fresh factorization
                     self._fact = None
                     self._expand_and_check()
-                elif self._last_mode == "band_chol":
-                    # the band expansion passed the pre-gate but failed
+                elif self._last_mode in DEVICE_FACTORS:
+                    # the device expansion passed the pre-gate but failed
                     # the order checks: the factor can be the weak link;
                     # host LU for the rest of this solve (anm.py:1320-1350)
                     if verbose_mode():
-                        print("band_chol expansion failed checks; host-LU "
-                              "fallback")
+                        print("%s expansion failed checks; host-LU "
+                              "fallback" % self._last_mode)
                     self._solver_override = "host_lu"
                     self._count_fallback("checks")
                     self._fact = None

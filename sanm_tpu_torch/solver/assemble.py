@@ -19,6 +19,12 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   stiffness E, for the refinement and the sanity residual of the band
   solve.
 
+K5a's scaled, sign-flipped scatter (:func:`scaled_scatter`, launched
+as ``band_assemble``) serves the three Cholesky solvers: the band
+(``solver/band.py``), the dense matrix of :class:`DensePlan`
+(``dense_chol``, ``sanm_tpu/solver/remap.py:380-421``) and the SPIKE
+partitions (``solver/spike.py``).
+
 The scatter-adds (``apply_out``, the CSR assembly, grad_t,
 ``element_matvec``) are summed in gather form from host-built inverse
 maps, in a fixed order and without atomics (``csrc/remap.cu``,
@@ -29,6 +35,8 @@ raises for anything else.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -36,10 +44,11 @@ from .. import kernels
 from ..ops.elements import Elements, InvElements
 from ..ops.svd_w import svd_w_jvp
 from ..utils import SANMError
-from .remap import gather_map
+from .remap import diag_nnz_pos, gather_map
 
 _f64 = torch.float64
 _i32 = torch.int32
+_i64 = torch.int64
 
 
 class DeviceAssembler:
@@ -509,3 +518,149 @@ def jac_asm_inv_nhi_plain(asm: DeviceAssembler, elems: InvElements, gin0):
 def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
     """Plain torch version of K8c (:func:`jac_asm_arap`)."""
     return _assemble_plain(asm, arap_jacobian_plain(elems, u, s, w))
+
+
+# ---------------------------------------------------------------------------
+# K5a: the scaled, sign-flipped scatter of the Cholesky solvers
+# ---------------------------------------------------------------------------
+
+
+def arrays_on(cache, device, arrays):
+    """A host plan's index arrays on ``device``, built once per device and
+    kept in ``cache``: ``arrays()`` gives ``{name: (numpy array, torch
+    dtype)}``."""
+    key = str(torch.device(device))
+    if key not in cache:
+        cache[key] = {
+            name: torch.as_tensor(np.ascontiguousarray(a)).to(
+                device=device, dtype=dtype).contiguous()
+            for name, (a, dtype) in arrays().items()}
+    return cache[key]
+
+
+_PLANS = {}  # per plan class: (pattern key, plan) of the last pattern
+
+
+def plan_for(cls, csr_rowidx, csr_cols, n: int):
+    """The plan (``cls``: the band, the dense or the SPIKE plan) of a
+    sparsity pattern, kept for the last pattern asked for: the solvers of
+    one mesh and boundary (the deform task's continuation and refinement,
+    a warm task re-run) share it."""
+    rows = np.ascontiguousarray(csr_rowidx, np.int32)
+    cols = np.ascontiguousarray(csr_cols, np.int32)
+    key = (int(n), hashlib.sha1(rows.tobytes()).digest(),
+           hashlib.sha1(cols.tobytes()).digest())
+    hit = _PLANS.get(cls)
+    if hit is None or hit[0] != key:
+        _PLANS.pop(cls, None)
+        _PLANS[cls] = (key, cls(rows, cols, n))
+    return _PLANS[cls][1]
+
+
+def scaled_scatter(data, diag_of_row, sel, rows, cols, idx, pad_idx,
+                   length):
+    """K5a on any target: ``out[idx[e]] = -(data[sel[e]] s[rows[e]]
+    s[cols[e]])`` into a new zeroed f64 buffer of ``length``, 1 at
+    ``pad_idx``, with the Jacobi scale ``s = |diag A|^-1/2`` (1 where a row
+    has no or a zero diagonal; ``diag_of_row`` is each row's diagonal
+    position in ``data``, -1 for none).  Returns ``(out, s)``.  The band,
+    the dense matrix (K6) and the SPIKE partitions (K7) are its targets."""
+    if not kernels.on_card(data, diag_of_row, sel, rows, cols, idx,
+                           pad_idx):
+        return scaled_scatter_plain(data, diag_of_row, sel, rows, cols, idx,
+                                    pad_idx, length)
+    for t, name in ((diag_of_row, "diag_of_row"), (sel, "sel"),
+                    (rows, "rows"), (cols, "cols")):
+        kernels.check(t, name, t.shape, _i32)
+    for t, name in ((idx, "idx"), (pad_idx, "pad_idx")):
+        kernels.check(t, name, t.shape, _i64)
+    n = diag_of_row.numel()
+    out = torch.empty((length,), dtype=_f64, device=data.device)
+    scale = torch.empty((n,), dtype=_f64, device=data.device)
+    kernels.launch("band_assemble", "sanm_band_assemble", data.data_ptr(),
+                   diag_of_row.data_ptr(), sel.data_ptr(), rows.data_ptr(),
+                   cols.data_ptr(), idx.data_ptr(), pad_idx.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), n, sel.numel(),
+                   pad_idx.numel(), length)
+    return out, scale
+
+
+def scaled_scatter_plain(data, diag_of_row, sel, rows, cols, idx, pad_idx,
+                         length):
+    pos = diag_of_row.long()
+    d = torch.where(pos >= 0, data[pos.clamp(min=0)].abs(),
+                    torch.zeros((), dtype=_f64, device=data.device))
+    scale = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
+    vals = -(data[sel.long()] * scale[rows.long()] * scale[cols.long()])
+    out = torch.zeros(length, dtype=_f64, device=data.device)
+    out[idx] = vals
+    out[pad_idx] = 1.0
+    return out, scale
+
+
+class DensePlan:
+    """The dense matrix of the ``dense_chol`` solver (K6): ``-(D A D)``
+    scattered straight into one (npad, npad) f64 buffer with a unit
+    diagonal in the pad (``sanm_tpu/solver/remap.py:380-421``
+    ``assemble_dense_scaled_neg``).  npad is n rounded up to the block
+    size ``s`` (default :data:`~sanm_tpu_torch.kernels.BLOCK`, the
+    only one the K6 kernels take), not to the JAX package's 2048
+    (``chol_pad_n``).  Every CSR entry is scattered, both triangles, as
+    the JAX package scatters them; the factor reads the lower one."""
+
+    def __init__(self, csr_rowidx, csr_cols, n: int, s: int = None):
+        self.n = n = int(n)
+        self.s = s = kernels.BLOCK if s is None else int(s)
+        self.nb = -(-n // s)
+        self.npad = npad = self.nb * s
+        r = np.asarray(csr_rowidx, np.int64)
+        c = np.asarray(csr_cols, np.int64)
+        self.nnz = int(r.size)
+        self.rows = r.astype(np.int32)
+        self.cols = c.astype(np.int32)
+        self.idx = r * npad + c
+        d = np.arange(n, npad, dtype=np.int64)
+        self.pad_idx = d * (npad + 1)
+        pos, prow = diag_nnz_pos(csr_rowidx, csr_cols)
+        self.diag_of_row = np.full(n, -1, np.int32)
+        self.diag_of_row[prow] = pos
+        self._dev = {}
+
+    def mem_bytes(self) -> int:
+        """The factor's bytes: the (npad, npad) f64 matrix, overwritten by
+        L, and the inverses of its nb diagonal blocks."""
+        return 8 * (self.npad * self.npad + self.nb * self.s * self.s)
+
+    def factor_flops(self) -> float:
+        """f64 operations of the blocked Cholesky: npad^3 / 3 (the
+        trailing updates, the panels and the diagonal blocks) plus the
+        inverses of the diagonal blocks (s^3 / 3 each)."""
+        return self.npad ** 3 / 3.0 + self.nb * self.s ** 3 / 3.0
+
+    def on(self, device):
+        """The scatter maps on ``device`` (cached)."""
+        return arrays_on(self._dev, device, lambda: dict(
+            diag_of_row=(self.diag_of_row, _i32),
+            sel=(np.arange(self.nnz), _i32), rows=(self.rows, _i32),
+            cols=(self.cols, _i32), idx=(self.idx, _i64),
+            pad_idx=(self.pad_idx, _i64)))
+
+
+def _dense_scatter_args(plan: DensePlan, data):
+    a = plan.on(data.device)
+    return (data, a["diag_of_row"], a["sel"], a["rows"], a["cols"],
+            a["idx"], a["pad_idx"], plan.npad * plan.npad)
+
+
+def dense_assemble(plan: DensePlan, data):
+    """``-(D A D)`` from the CSR values ``data`` into a new (npad, npad)
+    matrix, unit diagonal in the pad, through K5a; returns ``(M, scale)``
+    with the Jacobi scale (n,)."""
+    kernels.check(data, "data", (plan.nnz,), _f64)
+    flat, scale = scaled_scatter(*_dense_scatter_args(plan, data))
+    return flat.view(plan.npad, plan.npad), scale
+
+
+def dense_assemble_plain(plan: DensePlan, data):
+    flat, scale = scaled_scatter_plain(*_dense_scatter_args(plan, data))
+    return flat.view(plan.npad, plan.npad), scale

@@ -39,39 +39,34 @@ else.
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
 from .. import kernels
-from ..utils import SANMError, ScopedProfiler, sanm_assert
-from .linear import REFINE_STEPS, chol_refine_solve
+from ..utils import sanm_assert
+from .assemble import arrays_on, scaled_scatter, scaled_scatter_plain
+from .linear import REFINE_STEPS, RefinedCholSolver, chol_nan
 from .remap import diag_nnz_pos
 
 _f64 = torch.float64
 _i32 = torch.int32
 _i64 = torch.int64
 
-#: the block size, the default of :class:`BandPlan` and the only one the
-#: CUDA kernels take: one s x s f64 diagonal block (128 KB) fits one CTA's
-#: shared memory, and the skyline FLOPs are ~4x below the JAX package's
-#: TPU pick of s = 4096 at armadillo scale.  The plain versions take any s.
-BLOCK = 128
-
-
 class BandPlan:
     """Host-side symbolic analysis, built once per topology: RCM
     ordering, the skyline reach of every block column and the static
     assembly scatter map (``sanm_tpu/solver/band.py:79-222``).
 
-    ``s`` is the block size (default :data:`BLOCK`)."""
+    ``s`` is the block size (default :data:`~sanm_tpu_torch.kernels.BLOCK`,
+    the only one the CUDA kernels take: the skyline FLOPs are ~4x below
+    the JAX package's TPU pick of s = 4096 at armadillo scale; the plain
+    versions take any s)."""
 
     def __init__(self, csr_rowidx, csr_cols, n: int, s: int = None):
         import scipy.sparse as sp
         from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-        s = BLOCK if s is None else int(s)
+        s = kernels.BLOCK if s is None else int(s)
         sanm_assert(s > 0, "block size %d", s)
         r = np.asarray(csr_rowidx, np.int64)
         c = np.asarray(csr_cols, np.int64)
@@ -162,25 +157,12 @@ class BandPlan:
 
     def on(self, device):
         """The plan's index arrays on ``device`` (cached)."""
-        key = str(torch.device(device))
-        arrs = self._dev.get(key)
-        if arrs is None:
-            def dt(a, dtype):
-                return torch.as_tensor(np.ascontiguousarray(a)).to(
-                    device=device, dtype=dtype).contiguous()
-
-            arrs = dict(
-                diag_of_row=dt(self.diag_of_row, _i32),
-                band_sel=dt(self.band_sel, _i32),
-                sel_rows=dt(self.sel_rows, _i32),
-                sel_cols=dt(self.sel_cols, _i32),
-                band_idx=dt(self.band_idx, _i64),
-                pad_idx=dt(self.pad_idx, _i64),
-                perm_ext=dt(self.perm_ext, _i32),
-                invp_ext=dt(self.invp_ext, _i32),
-            )
-            self._dev[key] = arrs
-        return arrs
+        return arrays_on(self._dev, device, lambda: dict(
+            diag_of_row=(self.diag_of_row, _i32),
+            band_sel=(self.band_sel, _i32), sel_rows=(self.sel_rows, _i32),
+            sel_cols=(self.sel_cols, _i32), band_idx=(self.band_idx, _i64),
+            pad_idx=(self.pad_idx, _i64), perm_ext=(self.perm_ext, _i32),
+            invp_ext=(self.invp_ext, _i32)))
 
     def panel(self, panels, j):
         """Panel j of a factor as a (blk_w[j] + 1, s, s) view."""
@@ -189,27 +171,8 @@ class BandPlan:
         return panels[lo:hi].view(-1, s, s)
 
 
-_PLANS = {}  # the last pattern's plan (see band_plan_for)
-
-
-def band_plan_for(csr_rowidx, csr_cols, n: int) -> BandPlan:
-    """The :class:`BandPlan` of a sparsity pattern, kept for the last
-    pattern asked for: the solvers of one mesh and boundary (the deform
-    task's continuation and refinement, a warm task re-run) share it."""
-    rows = np.ascontiguousarray(csr_rowidx, np.int32)
-    cols = np.ascontiguousarray(csr_cols, np.int32)
-    key = (int(n), hashlib.sha1(rows.tobytes()).digest(),
-           hashlib.sha1(cols.tobytes()).digest())
-    if key not in _PLANS:
-        _PLANS.clear()
-        _PLANS[key] = BandPlan(rows, cols, n)
-    return _PLANS[key]
-
-
 def _kernel_block(plan):
-    if plan.s != BLOCK:
-        raise SANMError("the band kernels take the block size %d, not %d"
-                        % (BLOCK, plan.s))
+    kernels.check_block(plan.s)
 
 
 # ---------------------------------------------------------------------------
@@ -217,39 +180,24 @@ def _kernel_block(plan):
 # ---------------------------------------------------------------------------
 
 
+def _band_scatter_args(plan, data):
+    arrs = plan.on(data.device)
+    return (data, arrs["diag_of_row"], arrs["band_sel"], arrs["sel_rows"],
+            arrs["sel_cols"], arrs["band_idx"], arrs["pad_idx"],
+            plan.nrow_tot * plan.W)
+
+
 def band_assemble(plan: BandPlan, data):
     """``-(D A D)`` from the CSR values ``data`` (nnz,) into a new
     working band (nrow_tot, W), unit diagonal on the pad rows; returns
     ``(band, scale)`` with the Jacobi scale (n,)."""
-    arrs = plan.on(data.device)
     kernels.check(data, "data", (plan.nnz,), _f64)
-    if not kernels.on_card(data, arrs["band_idx"]):
-        return band_assemble_plain(plan, data)
-    band = torch.empty((plan.nrow_tot, plan.W), dtype=_f64,
-                       device=data.device)
-    scale = torch.empty((plan.n,), dtype=_f64, device=data.device)
-    kernels.launch("band_assemble", "sanm_band_assemble", data.data_ptr(),
-                   arrs["diag_of_row"].data_ptr(),
-                   arrs["band_sel"].data_ptr(), arrs["sel_rows"].data_ptr(),
-                   arrs["sel_cols"].data_ptr(), arrs["band_idx"].data_ptr(),
-                   arrs["pad_idx"].data_ptr(), scale.data_ptr(),
-                   band.data_ptr(), plan.n, len(plan.band_sel),
-                   len(plan.pad_idx), band.numel())
-    return band, scale
+    flat, scale = scaled_scatter(*_band_scatter_args(plan, data))
+    return flat.view(plan.nrow_tot, plan.W), scale
 
 
 def band_assemble_plain(plan: BandPlan, data):
-    arrs = plan.on(data.device)
-    pos = arrs["diag_of_row"].long()
-    d = torch.where(pos >= 0, data[pos.clamp(min=0)].abs(),
-                    torch.zeros((), dtype=_f64, device=data.device))
-    scale = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
-    vals = -(data[arrs["band_sel"].long()] * scale[arrs["sel_rows"].long()]
-             * scale[arrs["sel_cols"].long()])
-    flat = torch.zeros(plan.nrow_tot * plan.W, dtype=_f64,
-                       device=data.device)
-    flat[arrs["band_idx"]] = vals
-    flat[arrs["pad_idx"]] = 1.0
+    flat, scale = scaled_scatter_plain(*_band_scatter_args(plan, data))
     return flat.view(plan.nrow_tot, plan.W), scale
 
 
@@ -274,17 +222,6 @@ def band_factor(plan: BandPlan, band):
     return panels
 
 
-def _chol_nan(D):
-    """Lower Cholesky factor of the block whose lower triangle is ``D``'s
-    (the upper half is junk); all NaN when it is not positive definite,
-    as ``lax.linalg.cholesky`` gives."""
-    low = torch.tril(D)
-    L, info = torch.linalg.cholesky_ex(low + torch.tril(D, -1).mT)
-    if int(info) != 0 or not bool(torch.isfinite(L).all()):
-        L = torch.full_like(L, float("nan"))
-    return L
-
-
 def band_factor_plain(plan: BandPlan, band):
     s, w = plan.s, plan.w
     panels = torch.empty((int(plan.panel_off[-1]),), dtype=_f64,
@@ -293,7 +230,7 @@ def band_factor_plain(plan: BandPlan, band):
     for j in range(plan.nb):
         wj = int(plan.blk_w[j])
         c0 = j * s
-        Ljj = _chol_nan(band[c0:c0 + s, w * s:(w + 1) * s])
+        Ljj = chol_nan(band[c0:c0 + s, w * s:(w + 1) * s])
         inv = torch.linalg.solve_triangular(Ljj, eye, upper=False)
         out = plan.panel(panels, j)
         out[0] = inv
@@ -385,43 +322,25 @@ def band_solve_plain(plan: BandPlan, panels, rhs):
     return y[arrs["invp_ext"].long()][: plan.n]
 
 
-class DeviceBandCholSolver:
+class DeviceBandCholSolver(RefinedCholSolver):
     """Factorize once, back-substitute N times on the card
     (``band.py:388-440``): the working band is assembled and factored in
-    the constructor and freed; ``solve`` runs one permuted substitution
-    plus f64 iterative refinement against ``matvec`` (x -> A x, the
-    exact operator); ``factor_ok()`` flags an indefinite state.
-    Tikhonov mode is refused, as in the JAX package.
+    the constructor and freed; each solve runs one permuted substitution
+    per refinement trip (:class:`~sanm_tpu_torch.solver.linear.
+    RefinedCholSolver`)."""
 
-    ``solves`` and ``trips`` count the solves and their refinement
-    trips."""
+    name = "band_chol"
 
     def __init__(self, plan: BandPlan, data, matvec, l2_penalty=0.0,
                  refine_steps: int = REFINE_STEPS):
-        if l2_penalty:
-            raise SANMError("band_chol: Tikhonov mode not supported")
+        super().__init__(matvec, l2_penalty, refine_steps)
         self.plan = plan
-        self.matvec = matvec
-        self.refine_steps = int(refine_steps)
         band, self.scale = band_assemble(plan, data)
         self.panels = band_factor(plan, band)
         del band
-        self.solves = 0
-        self.trips = 0
 
     def factor_ok(self) -> bool:
         return band_factor_ok(self.panels)
 
-    def solve(self, b, with_resid=False):
-        """x with A x = b; with ``with_resid`` also the relative
-        residual ||b - A x|| / ||b|| (a 0-d tensor)."""
-        with ScopedProfiler("sparse_solve", block=True):
-            out = chol_refine_solve(
-                lambda r: band_solve(self.plan, self.panels, r), self.scale,
-                b, self.matvec, self.refine_steps, with_resid=with_resid)
-        self.solves += 1
-        self.trips += out[1]
-        return (out[0], out[2]) if with_resid else out[0]
-
-    def apply(self, x):
-        return self.matvec(x)
+    def tri_solve(self, r):
+        return band_solve(self.plan, self.panels, r)

@@ -160,6 +160,72 @@ def test_band_factor_indefinite_state(models):
     assert not K5.band_factor_ok(K5.band_factor_plain(plan, band_p))
 
 
+# K6 and K7 against their plain versions on the same systems as K5:
+# factors within 1e-10 (K5b's tolerance), substitutions within 1e-12.
+DIRECT_TOL = {"dense_factor": 1e-10, "dense_solve": 1e-12,
+              "spike_rhs_solve": 1e-12, "spike_solve": 1e-12}
+
+
+def test_dense_chol_kernels(models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import linear as K6
+    from sanm_tpu_torch.solver.assemble import DensePlan, dense_assemble
+
+    for rows, cols, data_g, data_c, mv, n in band_systems(models):
+        plan = DensePlan(rows, cols, n)
+        n0 = dict(kernels.LAUNCHES)
+        M, _ = dense_assemble(plan, data_g)
+        M_p = M.cpu()
+        inv = K6.dense_factor(plan, M)
+        inv_p = K6.dense_factor_plain(plan, M_p)
+        assert K6.dense_factor_ok(inv) and K6.dense_factor_ok(inv_p)
+        assert rel(torch.tril(M), torch.tril(M_p)) <= DIRECT_TOL[
+            "dense_factor"]
+        assert rel(inv, inv_p) <= DIRECT_TOL["dense_factor"]
+        rhs = torch.as_tensor(np.random.default_rng(5).standard_normal(n))
+        y = K6.dense_solve(plan, M, inv, rhs.cuda())
+        y_p = K6.dense_solve_plain(plan, M.cpu(), inv.cpu(), rhs)
+        assert rel(y, y_p) <= DIRECT_TOL["dense_solve"]
+        solver = K6.DeviceCholSolver(plan, data_g, mv)
+        _, res = solver.solve(rhs.cuda(), with_resid=True)
+        assert float(res) <= 1e-12
+        assert not K6.DeviceCholSolver(plan, -data_g, mv).factor_ok()
+        torch.cuda.synchronize()
+        for name, count in (("dense_factor", 3), ("dense_solve", 2)):
+            assert kernels.LAUNCHES[name] >= n0[name] + count, name
+
+
+@pytest.mark.parametrize("nparts", [2, 3])
+def test_spike_kernels(models, nparts):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import spike as K7
+
+    for rows, cols, data_g, data_c, mv, n in band_systems(models):
+        plan = K7.SpikePlan(rows, cols, n, nparts=nparts)
+        assert plan.P == nparts
+        n0 = dict(kernels.LAUNCHES)
+        Bloc, C, _ = K7.spike_assemble(plan, data_g)
+        panels = K7.spike_local_factor(plan, Bloc)
+        R = torch.as_tensor(np.random.default_rng(6).standard_normal(
+            (plan.P, plan.m, 128)))
+        X = K7.spike_rhs_solve(plan, panels, R.cuda())
+        X_p = K7.spike_rhs_solve_plain(plan, panels.cpu(), R)
+        assert rel(X, X_p) <= DIRECT_TOL["spike_rhs_solve"]
+        F = K7.spike_factor(plan, panels, C)
+        assert F.ok()
+        rhs = torch.as_tensor(np.random.default_rng(5).standard_normal(n))
+        y = K7.spike_solve(plan, F, rhs.cuda())
+        y_p = K7.spike_solve_plain(plan, F, rhs.cuda())
+        assert rel(y, y_p) <= DIRECT_TOL["spike_solve"]
+        solver = K7.DeviceSpikeBandSolver(plan, data_g, mv)
+        _, res = solver.solve(rhs.cuda(), with_resid=True)
+        assert float(res) <= 1e-12
+        assert not K7.DeviceSpikeBandSolver(plan, -data_g, mv).factor_ok()
+        torch.cuda.synchronize()
+        for name, count in (("spike_rhs_solve", 3), ("spike_solve", 2)):
+            assert kernels.LAUNCHES[name] >= n0[name] + count, name
+
+
 def test_element_matvec(models):
     from sanm_tpu_torch import kernels
     from sanm_tpu_torch.solver import assemble as K

@@ -171,8 +171,9 @@ def test_wrappers_do_not_fall_back():
 
 def test_auto_takes_host_lu_on_the_cpu():
     """``auto`` resolves to host LU on the CPU (the band path is taken on
-    the card only), and an explicit ``band_chol`` runs the plain versions
-    there without counting a launch."""
+    the card only), and an explicit ``band_chol``, ``dense_chol``,
+    ``spike_band`` or ``dense`` runs the plain versions there without
+    counting a launch."""
     from sanm_tpu_torch import kernels
     from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
                                     MaterialProperty, TetrahedralMesh)
@@ -186,7 +187,9 @@ def test_auto_takes_host_lu_on_the_cpu():
     f = np.zeros(model.x0().size)
     f[2::3] = -1e-3
     before = dict(kernels.LAUNCHES)
-    for solver, mode in (("auto", "host_lu"), ("band_chol", "band_chol")):
+    for solver, mode in (("auto", "host_lu"), ("band_chol", "band_chol"),
+                         ("dense_chol", "dense_chol"),
+                         ("spike_band", "spike_band"), ("dense", "dense")):
         s = ANMEqnSolver(model, model.x0(), f,
                          EqnHyperParam(order=4, solver=solver))
         assert s._solver_mode() == mode and s._fact["mode"] == mode
@@ -416,6 +419,70 @@ def test_inverse_wrappers_do_not_fall_back():
         jac(asm, elems, gin0)
         model.jac_asm(gin0)
         assert isinstance(model.series(4), cls)
+    assert kernels.LAUNCHES == before
+
+
+def test_direct_wrappers_do_not_fall_back():
+    """K6b dense_factor, K6c dense_solve, K7b spike_rhs_solve and K7c
+    spike_solve (and K5a's dense and SPIKE scatters) raise on a meta
+    tensor, a wrong dtype or shape, a tensor that is not contiguous and a
+    block size the kernels do not take; on CPU tensors they run their
+    plain versions and count no launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.solver import linear, spike
+    from sanm_tpu_torch.solver.assemble import DensePlan, dense_assemble
+    from torch_helper import coo_of, random_sparse_spd
+
+    rows, cols, vals = coo_of(random_sparse_spd(
+        300, 15, np.random.default_rng(2)))
+    data = torch.as_tensor(vals)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(300))
+    before = dict(kernels.LAUNCHES)
+    dp = DensePlan(rows, cols, 300, 64)
+    with pytest.raises(SANMError):
+        dense_assemble(dp, data.to("meta"))
+    with pytest.raises(SANMError):
+        dense_assemble(dp, data.float())
+    M, _ = dense_assemble(dp, data)
+    with pytest.raises(SANMError):
+        linear.dense_factor(dp, M.to("meta"))
+    with pytest.raises(SANMError):
+        linear.dense_factor(dp, M[:, :-1])
+    with pytest.raises(SANMError):
+        linear.dense_factor(dp, M.T)
+    inv = linear.dense_factor(dp, M)
+    with pytest.raises(SANMError):
+        linear.dense_solve(dp, M.to("meta"), inv.to("meta"), x.to("meta"))
+    with pytest.raises(SANMError):
+        linear.dense_solve(dp, M, inv, x[:-1])
+    with pytest.raises(SANMError):
+        linear.dense_solve(dp, M, inv.float(), x)
+    with pytest.raises(SANMError):  # the kernels take s = 128 only
+        kernels.check_block(dp.s)
+    linear.dense_solve(dp, M, inv, x)
+
+    sp = spike.SpikePlan(rows, cols, 300, 32, 2)
+    with pytest.raises(SANMError):
+        spike.spike_assemble(sp, data.to("meta"))
+    Bloc, C, _ = spike.spike_assemble(sp, data)
+    panels = spike.spike_local_factor(sp, Bloc)
+    R = torch.zeros((sp.P, sp.m, 64), dtype=torch.float64)
+    with pytest.raises(SANMError):
+        spike.spike_rhs_solve(sp, panels.to("meta"), R.to("meta"))
+    with pytest.raises(SANMError):
+        spike.spike_rhs_solve(sp, panels, R[:, :-1])
+    with pytest.raises(SANMError):
+        spike.spike_rhs_solve(sp, panels, R.transpose(1, 2))
+    spike.spike_rhs_solve(sp, panels, R)
+    F = spike.spike_factor(sp, panels, C)
+    assert F.ok()
+    for name in ("invL", "invUt", "LU", "V", "W", "G", "Mh"):
+        assert getattr(F, name).is_contiguous(), name
+    with pytest.raises(SANMError):
+        spike.spike_solve(sp, F, x.to("meta"))
+    with pytest.raises(SANMError):
+        spike.spike_solve(sp, F, x[:-1])
+    spike.spike_solve(sp, F, x)
     assert kernels.LAUNCHES == before
 
 
