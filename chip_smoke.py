@@ -102,14 +102,37 @@ Phases, each timed:
 16. inverse kernels: K3i at the first restart (the given mesh) and at the
    rest shape found, and K1i along that first restart (bias orders
    2..20), of the armadillo (NHC) and bob (NHI) inverse runs, each
-   against its plain version, timed as in 5.
+   against its plain version, timed as in 5;
+17. baseline: the classical projected Newton baseline
+   (``override_baseline.json``) through the port's entry point, cold, on
+   the armadillo ARAP bend (``mesh_twist`` with
+   ``armadillo_small_bend_override.json`` + ``override_arap.json``):
+   force-RMS <= 1e-10, no inverted element, the displacement within
+   1e-8 relative of the JAX package's CPU value
+   (``BASELINE_DISPLACEMENT``), K10 (the projected Hessian) and the
+   refinement's Jacobian kernel launched; Newton and refinement
+   iterations, ``time``, ``newton_time``, the host SuperLU share and the
+   K10 launches are printed beside the JAX package's CPU iterations.
+   K10 also has rows in 5 (NHC at the armadillo equilibrium), 7 (ARAP at
+   the ARAP one) and 9 (NHI at human's), each against its plain version
+   (1e-11) with ``torch.linalg.eigh`` + clamp + reconstruction of the
+   same blocks as its library yardstick; 12 adds projected Newton (NHC,
+   NHI, ARAP) and Levenberg-Marquardt (NHC) on the cuboid, card against
+   CPU.  The ``kernels`` line's K10 launches are the ARAP bend's for
+   ``hess_proj_arap`` and the cuboid's for ``hess_proj`` and
+   ``hess_proj_nhi``, whose rows say so (``launches_on``).
 
 ``python3 chip_smoke.py --records [--out DIR]`` instead runs only the
 build and :func:`phase_records`: ``configs/jet.json`` (NHI, 47,668 tets)
 on ``band_chol`` and on ``host_lu``, cold (restarts, force-RMS, the
 solver that ran, band fallbacks, refinement trips per solve), the human
-ARAP bend on ``band_chol``, cold, and the band solve's residual after
-each refinement trip on three meshes.
+ARAP bend on ``band_chol``, cold, the band solve's residual after
+each refinement trip on three meshes, and the projected Newton
+baseline (``override_baseline.json``) with the checks of 17 on bar NHC
+gravity (``bar.json`` + ``override_neo_comp.json``, 44 + 2 iterations)
+and on armadillo-small NHC gravity, as bench.py's Newton leg runs it (36
++ 2 iterations of host SuperLU; its displacement within 1e-8 relative
+of ``ARMADILLO_DISPLACEMENT``).
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -199,6 +222,41 @@ INV_RESTARTS = 1
 INV_CELL_KERNELS = {"armadillo": ("inv_nhc_step", "jac_asm_inv"),
                     "bob": ("inv_nhi_step", "jac_asm_inv_nhi")}
 BAR_CONFIGS = [os.path.join(ROOT, "configs", "bar.json")]
+# the baseline cells (projected Newton, override_baseline.json): the
+# armadillo ARAP bend (mesh_twist) in the smoke run; bar NHC gravity (44
+# factors of host SuperLU, ~24 s on the card machine) and armadillo-small
+# NHC gravity (38 factors of ~2.7 s) under --records
+BASELINE = os.path.join(ROOT, "configs", "override_baseline.json")
+BASELINE_CELLS = {"arap bend": DEFORM_CONFIGS + [os.path.join(
+    ROOT, "configs", "override_arap.json"), BASELINE]}
+BASELINE_RECORD_CELLS = {
+    "bar nhc": BAR_CONFIGS + [os.path.join(ROOT, "configs",
+                                           "override_neo_comp.json"),
+                              BASELINE],
+    "armadillo nhc": [CONFIG, BASELINE]}
+# the JAX package's relative displacement and (iter_tot, iter_refine) of
+# these tasks on the CPU (f64, host SuperLU; force-RMS 2.78e-13, 3.00e-12
+# and 5.16e-14), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json <configs>
+# (the stat JSONs armadillo-small.json, bar-i0-neohookean_c.json and
+# armadillo-small-i0-neohookean_c.json); the card's displacement must
+# agree to 1e-8 relative (armadillo-small NHC: with the ANM's
+# ARMADILLO_DISPLACEMENT, from which the JAX package's Newton lands
+# 9.1e-11), its iterations are printed beside these (a line-search test
+# may flip on the last bit)
+BASELINE_DISPLACEMENT = {"arap bend": 0.07364899211351118,
+                         "bar nhc": 0.19535560509805577,
+                         "armadillo nhc": ARMADILLO_DISPLACEMENT}
+BASELINE_ITERS = {"arap bend": (10, 1), "bar nhc": (44, 2),
+                  "armadillo nhc": (36, 2)}
+BASELINE_RTOL = 1e-8
+# where the kernels line's K10 NHC and NHI launches come from
+BASELINE_CUBOID_ONLY = ("3x2x2 cuboid projected Newton (parity phase) "
+                        "only, not full size")
+# per cell the K10 instantiation and the refinement's Jacobian kernel
+BASELINE_CELL_KERNELS = {"arap bend": ("hess_proj_arap", "jac_asm_arap"),
+                         "bar nhc": ("hess_proj", "jac_asm"),
+                         "armadillo nhc": ("hess_proj", "jac_asm")}
 # the FEA_INVCHECK round trip's restored rest vertices vs the original,
 # in norm (the TPU record reads 5.5e-12, RESULTS.md:429-437)
 INVCHECK_TOL = 1e-9
@@ -223,7 +281,8 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "jac_asm_nhi": 1e-12, "grad_t": 1e-12, "inv_nhc_step": 1e-11,
        "inv_nhi_step": 1e-11, "jac_asm_inv": 1e-12, "jac_asm_inv_nhi": 1e-12,
        "dense_factor": 1e-10, "dense_solve": 1e-12, "spike_rhs_solve": 1e-12,
-       "spike_solve": 1e-12}
+       "spike_solve": 1e-12, "hess_proj": 1e-11, "hess_proj_nhi": 1e-11,
+       "hess_proj_arap": 1e-11}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -243,6 +302,7 @@ DEFORM_KERNELS = ("grad_t",)
 INV_KERNELS = ("inv_nhc_step", "inv_nhi_step", "jac_asm_inv",
                "jac_asm_inv_nhi")
 DIRECT_KERNEL_NAMES = sum(DIRECT_KERNELS.values(), ())
+BASELINE_KERNELS = ("hess_proj", "hess_proj_nhi", "hess_proj_arap")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -266,6 +326,9 @@ REPLACES = {
     "dense_solve": "sanm_tpu/solver/linear.py:364",
     "spike_rhs_solve": "sanm_tpu/solver/spike.py:237",
     "spike_solve": "sanm_tpu/solver/spike.py:375",
+    "hess_proj": "sanm_tpu/fea/baseline.py:178",
+    "hess_proj_nhi": "sanm_tpu/fea/baseline.py:178",
+    "hess_proj_arap": "sanm_tpu/fea/baseline.py:178",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -290,6 +353,9 @@ SOURCES = {
     "dense_solve": "sanm_tpu_torch/csrc/dense_chol.cu",
     "spike_rhs_solve": "sanm_tpu_torch/csrc/spike.cu",
     "spike_solve": "sanm_tpu_torch/csrc/spike.cu",
+    "hess_proj": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "hess_proj_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "hess_proj_arap": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -515,6 +581,63 @@ def reporter(rows):
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     return report
+
+
+#: f64 operations of K10's function per element, fixed by its inputs:
+#: the material's dP/dF in F (NHC, NHI, ARAP: its 81 entries from U, s,
+#: V), and for all three the symmetrisation (72), a symmetric 9x9
+#: eigensolve with vectors at the symmetric QR algorithm's ~9 n^3
+#: (6,561; Golub and Van Loan), D+ = V diag(max(L, 0)) V^T (2 n^3 + n^2
+#: = 1,539) and the chain (405); K3's contraction is added per plan.
+#: The kernel's Jacobi runs more (~6,400 operations a sweep): those are
+#: its algorithm's, not the function's, and are not counted.
+K10_DPDF_OPS = {"hess_proj": 700, "hess_proj_nhi": 1100,
+                "hess_proj_arap": 5400}
+K10_COMMON_OPS = 72 + 9 * 9 ** 3 + (2 * 9 ** 3 + 9 ** 2) + 405
+K10_DPDF = {"hess_proj": "nhc_dpdf_plain", "hess_proj_nhi": "nhi_dpdf_plain",
+            "hess_proj_arap": "arap_dpdf_plain"}
+
+
+def k10_row(torch, timing, report, name, model, args):
+    """K10 ``name`` against its plain version on ``model`` at ``args``
+    (the graph input, or for ARAP K8a's u, s, w of F), timed as the other
+    rows; the bound counts each input read and each output written once
+    and :data:`K10_DPDF_OPS` and :data:`K10_COMMON_OPS` per element; the
+    library yardstick is ``torch.linalg.eigh`` of the same symmetric
+    F-space blocks (in chunks: cuSOLVER's batched syev refuses 32,768
+    blocks and more) plus the clamp and the reconstruction (the
+    projection alone, without dP/dF, the chain, the contraction and the
+    gather)."""
+    from sanm_tpu_torch.solver import assemble as K23
+
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    fn, plain = getattr(K23, name), getattr(K23, name + "_plain")
+    data, E = fn(asm, elems, *args)
+    data_p, E_p = plain(asm, elems, *args)
+    e_d, r_d = rel_err(data, data_p)
+    e_e, r_e = rel_err(E, E_p)
+    del data_p, E_p
+    flops = B * (K10_DPDF_OPS[name] + K10_COMMON_OPS
+                 + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
+    D = getattr(K23, K10_DPDF[name])(elems, *args)
+    D = 0.5 * (D + D.transpose(1, 2))
+
+    def library():
+        w, v = K23.eigh_blocks(D)
+        return (v * w.clamp(min=0.0)[:, None, :]) @ v.transpose(1, 2)
+
+    lib_ms = timing.ms(library, reps=3, warmup=1)
+    ins = args if name == "hess_proj_arap" else (args[0], elems.bias)
+    report(name, max(e_d, e_e), max(r_d, r_e),
+           timing.kernel_ms(lambda: fn(asm, elems, *args), reps=5),
+           timing.ms(lambda: plain(asm, elems, *args), reps=2, warmup=1),
+           bound_ms(nbytes(*ins, elems.dminv, asm.Lout, asm.Lin, asm.nz_ptr,
+                           asm.nz_slot, E, data), flops), lib_ms,
+           "(library: torch.linalg.eigh in chunks of %d + clamp + "
+           "reconstruction of the symmetric F-space blocks, the "
+           "projection alone)" % K23.EIGH_CHUNK)
+    del data, E, D
 
 
 # ---------------------------------------------------------------------------
@@ -744,6 +867,8 @@ def phase_kernels(torch, timing, verts_eq):
            bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
                            asm.nz_ptr, asm.nz_slot, E, data), flops))
     del data_p, E_p
+    # ---- K10 (NHC) at the deformed equilibrium ----
+    k10_row(torch, timing, report, "hess_proj", model, (gin,))
     libs = band_rows(torch, timing, model, data, E, x_eq, f_load, report)
     direct_rows(torch, timing, model, data, f_load, report, *libs)
     del data, E
@@ -1078,13 +1203,13 @@ def direct_rows(torch, timing, model, data, f_load, report, f_lib_ms,
     say("direct kernels: %.2f s" % (time.perf_counter() - t0))
 
 
-def cuboid_solve(device, solver, energy_model):
+def cuboid_body():
+    """The parity cuboid (6 x 4 x 4, 225 tets, x = 0 fixed) and its load,
+    -200 N on each vertex of the far face."""
     import numpy as np
 
-    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
-                                    MaterialProperty, TetrahedralMesh)
-    from sanm_tpu_torch.fea.app import RMS_THRESH_FORCE_EQU, run_anm_eqn
-    from sanm_tpu_torch.solver import ANMEqnSolver, EqnHyperParam
+    from sanm_tpu_torch.fea import (DeformableBody, MaterialProperty,
+                                    TetrahedralMesh)
 
     nx, ny, nz, h = 6, 4, 4, 0.025
     mesh = TetrahedralMesh.make_cuboid(nx, ny, nz, h)
@@ -1093,6 +1218,15 @@ def cuboid_solve(device, solver, energy_model):
     body.coord_fixed_mask[mesh.vertices[:, 0] <= h / 2, :] = True
     f = np.zeros((mesh.nr_vertices, 3))
     f[mesh.vertices[:, 0] > (nx - 1) * h - h / 2, 2] = -200.0
+    return body, f
+
+
+def cuboid_solve(device, solver, energy_model):
+    from sanm_tpu_torch.fea import DeformableBody, EnergyModel
+    from sanm_tpu_torch.fea.app import RMS_THRESH_FORCE_EQU, run_anm_eqn
+    from sanm_tpu_torch.solver import ANMEqnSolver, EqnHyperParam
+
+    body, f = cuboid_body()
     model = body.make_forward(EnergyModel.from_name(energy_model),
                               device=device)
     fs = model.lt_inp.copy_vtx_values(f)
@@ -1105,6 +1239,62 @@ def cuboid_solve(device, solver, energy_model):
     require(s.solver_resolved() == solver,
             "cuboid on %s: %s ran" % (solver, s.solver_resolved()))
     return s.get_nr_iter(), x, rms
+
+
+def cuboid_baseline(device, energy_model, levmar=False):
+    """Projected Newton (or Levenberg-Marquardt) on the parity cuboid."""
+    from sanm_tpu_torch.fea import EnergyModel, baseline
+    from sanm_tpu_torch.fea.app import RMS_THRESH_FORCE_EQU
+
+    body, f = cuboid_body()
+    m = body.mesh
+    desc = (EnergyModel.from_name(energy_model), body.material)
+    if levmar:
+        return baseline.solve_force_equ_levmar(
+            m.tets, m.vertices, f, body.coord_fixed_mask, desc,
+            RMS_THRESH_FORCE_EQU, device=device)
+    return baseline.solve_energy_min(
+        m.tets, m.vertices, m.vertices, f, body.coord_fixed_mask, desc,
+        RMS_THRESH_FORCE_EQU, device=device)
+
+
+def baseline_parity(torch):
+    """Projected Newton (NHC, NHI, ARAP) and Levenberg-Marquardt (NHC) on
+    the parity cuboid, card against CPU: same iterations, coordinates
+    within ``PARITY_RTOL``, converged.  Returns the launch counts of the
+    card runs (K10 NHI's only main-path launches)."""
+    import numpy as np
+
+    from sanm_tpu_torch import kernels
+
+    launches = {}
+    for em, levmar in (("neohookean_c", False), ("neohookean_i", False),
+                       ("arap", False), ("neohookean_c", True)):
+        kernels.reset_launches()
+        st_c = cuboid_baseline("cuda", em, levmar)
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        st_p = cuboid_baseline("cpu", em, levmar)
+        rest = cuboid_body()[0].mesh.vertices
+        rel = float(np.abs(st_c.vtx - st_p.vtx).max()
+                    / np.abs(st_p.vtx - rest).max())
+        rms = max(s.grad_rms_refine if s.nr_iter_refine else s.grad_rms
+                  for s in (st_c, st_p))
+        say("parity cuboid (225 tets, %s, %s): iter card %d + %d / cpu %d + "
+            "%d, force-RMS <= %.3e, coord rel diff %.3e (tol %.0e)"
+            % (em, "levmar" if levmar else "projected Newton", st_c.nr_iter,
+               st_c.nr_iter_refine, st_p.nr_iter, st_p.nr_iter_refine, rms,
+               rel, PARITY_RTOL))
+        require((st_c.nr_iter, st_c.nr_iter_refine)
+                == (st_p.nr_iter, st_p.nr_iter_refine),
+                "baseline iterations differ between card and CPU")
+        require(rel <= PARITY_RTOL, "card and CPU baselines differ")
+        require(rms <= RMS_TARGET, "cuboid baseline not converged")
+    for name in BASELINE_KERNELS:
+        require(launches[name] > 0, "kernel %s was not launched in the "
+                "cuboid's projected Newton" % name)
+    return launches
 
 
 def phase_parity():
@@ -1132,7 +1322,9 @@ def phase_parity():
             require(it_c == it_p, "iterations differ between card and CPU")
             require(rel <= PARITY_RTOL, "card and CPU solutions differ")
             require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
+    launches = baseline_parity(torch)
     phase_done("parity", t0)
+    return launches
 
 
 def mesh_vertex_count(cfg):
@@ -1523,6 +1715,8 @@ def phase_nhi_kernels(torch, timing, res):
            bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
                            asm.nz_ptr, asm.nz_slot, E, data), flops))
     del data, E
+    # ---- K10 (NHI) at the equilibrium ----
+    k10_row(torch, timing, report, "hess_proj_nhi", model, (gin,))
 
     # ---- K1n along a real first restart from the rest shape, solved
     # with the card's band factor (host SuperLU of the human mesh takes
@@ -1792,6 +1986,84 @@ def refine_trace(torch, label, configs, trips=8):
         require(np.isfinite(rel).all(), "refinement not finite")
 
 
+def run_baseline(torch, label, configs):
+    """The task of the merged ``configs`` with a baseline section through
+    the port's entry point, cold, with the profiler on and the launch
+    counts set to 0 just before: force-RMS <= 1e-10, no inverted element,
+    the displacement within ``BASELINE_RTOL`` of the JAX package's CPU
+    value, the cell's K10 and (with a refinement) its Jacobian kernel
+    launched.  Returns the stat and the counts."""
+    import numpy as np
+
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.fea import app
+    from sanm_tpu_torch.utils import ScopedProfiler
+
+    os.environ.pop("SANM_WARM_TIMING", None)
+    ScopedProfiler.enabled = True
+    ScopedProfiler.reset()
+    cfg = app.merge_configs(list(configs))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = app.TASKS[cfg["func"]](cfg, os.path.dirname(CONFIG),
+                                         device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+    n_lu, t_lu = ScopedProfiler.stats("newton_solve")
+    n_h, t_h = ScopedProfiler.stats("newton_hess")
+    ScopedProfiler.enabled = False
+    st = res.stat
+    want = BASELINE_DISPLACEMENT[label]
+    rel = abs(st["displacement"] - want) / want
+    k10, jac = BASELINE_CELL_KERNELS[label]
+    say("baseline %s: iter_tot %d iter_refine %d (JAX package on the CPU: "
+        "%d + %d); time %.3f s newton_time %.3f s (task wall %.3f s); host "
+        "SuperLU %d factors %.3f s (%.1f%% of time); Hessian (card + copy "
+        "to the host) %d x %.4f s; K10 %s launches %d, %s %d"
+        % ((label, st["iter_tot"], st["iter_refine"])
+           + BASELINE_ITERS[label]
+           + (st["time"], st["newton_time"], wall, n_lu, t_lu,
+              100.0 * t_lu / st["time"], n_h, t_h / max(n_h, 1), k10,
+              launches[k10], jac, launches[jac])))
+    say("baseline %s: force_rms_recomp=%.3e (target %.0e) nr_inverted=%d; "
+        "displacement %.16g vs the JAX package's %.16g: rel diff %.3e (tol "
+        "%.0e)" % (label, st["force_rms_recomp"], RMS_TARGET,
+                   st["nr_inverted"], st["displacement"], want, rel,
+                   BASELINE_RTOL))
+    say("baseline %s: launches %s" % (label, json.dumps(launches)))
+    nv = mesh_vertex_count(cfg)
+    require(np.isfinite(res.mesh.vertices).all()
+            and res.mesh.vertices.shape == (nv, 3), "bad output mesh")
+    require(st["force_rms_recomp"] <= RMS_TARGET, "%s not converged" % label)
+    require(st["nr_inverted"] == 0, "inverted elements")
+    require(rel <= BASELINE_RTOL, "%s displacement differs from the JAX "
+            "package's" % label)
+    require(launches[k10] > 0, "K10 %s was not launched" % k10)
+    require(st["iter_refine"] == 0 or launches[jac] > 0,
+            "the refinement's %s was not launched" % jac)
+    return st, launches
+
+
+def phase_baseline(torch, cells=BASELINE_CELLS):
+    """The projected Newton baseline on ``cells`` (:func:`run_baseline`;
+    the smoke run's: the armadillo ARAP bend).  Returns per cell the stat
+    and the launch counts."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, configs in cells.items():
+        out[label] = run_baseline(torch, label, configs)
+        torch.cuda.empty_cache()
+    phase_done("baseline", t0)
+    return out
+
+
 def phase_records(torch):
     """Records outside the smoke run: the jet NHI cell
     (``configs/jet.json``) on band_chol and on host_lu, cold (a fallback
@@ -1821,6 +2093,9 @@ def phase_records(torch):
         refine_trace(torch, label, configs)
         torch.cuda.empty_cache()
     phase_done("records", t0)
+    for label, (st, _) in phase_baseline(torch,
+                                         BASELINE_RECORD_CELLS).items():
+        stats["baseline " + label] = st
     return stats
 
 
@@ -1914,6 +2189,8 @@ def phase_arap_kernels(torch, timing, verts_eq):
            bound_ms(nbytes(u, s, w, elems.dminv, asm.Lout, asm.Lin,
                            asm.nz_ptr, asm.nz_slot, E, data), flops))
     del data, E
+    # ---- K10 (ARAP) at the equilibrium ----
+    k10_row(torch, timing, report, "hess_proj_arap", model, (u, s, w))
 
     # ---- K8b along two real restarts: the first from the rest shape
     # (timed and reported; there F0 = I, so s0 = (1, 1, 1)) and one from
@@ -2168,6 +2445,7 @@ def main(argv):
     runs_inv = phase_inverse(torch)
     stat_invcheck = phase_invcheck(torch)
     torch.cuda.empty_cache()
+    runs_base = phase_baseline(torch)
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
@@ -2180,19 +2458,32 @@ def main(argv):
     stats_inv = {cell: r.stat for cell, (r, _) in runs_inv.items()}
     del timing, res_nhi, runs_inv
     torch.cuda.empty_cache()
-    phase_parity()
+    launches_parity = phase_parity()
     phase_profile(torch, band_solver)
     del band_solver
+    # K10 on the baselines: ARAP on the full-size armadillo bend, NHC and
+    # NHI only on the 3x2x2 cuboid's projected Newton (parity phase; the
+    # full-size NHC cells run under --records); each K10 row says which
+    launches_base = {"hess_proj": launches_parity["hess_proj"],
+                     "hess_proj_arap": runs_base["arap bend"][1][
+                         "hess_proj_arap"],
+                     "hess_proj_nhi": launches_parity["hess_proj_nhi"]}
+    launches_on = {"hess_proj": BASELINE_CUBOID_ONLY,
+                   "hess_proj_nhi": BASELINE_CUBOID_ONLY,
+                   "hess_proj_arap": "armadillo-small ARAP bend, projected "
+                                     "Newton baseline, full size"}
     kern = []
     for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS
-                 + INV_KERNELS + DIRECT_KERNEL_NAMES):
+                 + INV_KERNELS + DIRECT_KERNEL_NAMES + BASELINE_KERNELS):
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
         # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t,
         # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i,
-        # the NHC dense_chol and spike_band phases for K6 and K7
-        runs = (launches_arap if name in ARAP_KERNELS else
+        # the NHC dense_chol and spike_band phases for K6 and K7, the
+        # baselines for K10
+        runs = (launches_base if name in BASELINE_KERNELS else
+                launches_arap if name in ARAP_KERNELS else
                 launches_nhi if name in NHI_KERNELS else
                 launches_deform if name in DEFORM_KERNELS else
                 launches_inv if name in INV_KERNELS else
@@ -2206,13 +2497,17 @@ def main(argv):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+        if name in launches_on:
+            kern[-1]["launches_on"] = launches_on[name]
     say("build_s=%.2f total_s=%.2f" % (build_s, time.perf_counter() - _T0))
     write_out(out_dir, {"band_chol": stat, "host_lu": stat_lu,
                         "dense_chol": direct["dense_chol"][1],
                         "spike_band": direct["spike_band"][1],
                         "arap": stats_arap, "nhi": stats_nhi,
                         "deform": stats_deform, "inverse": stats_inv,
-                        "invcheck": stat_invcheck})
+                        "invcheck": stat_invcheck,
+                        "baseline": {k: st for k, (st, _) in
+                                     runs_base.items()}})
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -153,6 +153,30 @@ int sanm_jac_asm_inv_nhi(const double* gin0, const double* bias,
                          int64_t B, int Dout, int Din, int64_t nnz,
                          double mu, double kappa, void* stream);
 
+// K10: per element the eigen-projected dP/dF of the NHC (mu, lam), NHI
+// (mu, kappa) or ARAP (K8a's u, s, w of F; mu) stress at
+// F = (g0 + bias) Dm^-1: D+ = V max(L, 0) V^T of sym(dP/dF) by a cyclic
+// Jacobi eigensolver, chained to g, then E and the CSR values as
+// sanm_jac_asm (the sign of the ANM Jacobian: minus the projected
+// Hessian).
+int sanm_hess_proj(const double* gin0, const double* bias,
+                   const double* dminv, const double* Lout, const double* Lin,
+                   const int32_t* nz_ptr, const int32_t* nz_slot, double* E,
+                   double* data, int64_t B, int Dout, int Din, int64_t nnz,
+                   double mu, double lam, void* stream);
+int sanm_hess_proj_nhi(const double* gin0, const double* bias,
+                       const double* dminv, const double* Lout,
+                       const double* Lin, const int32_t* nz_ptr,
+                       const int32_t* nz_slot, double* E, double* data,
+                       int64_t B, int Dout, int Din, int64_t nnz, double mu,
+                       double kappa, void* stream);
+int sanm_hess_proj_arap(const double* u, const double* s, const double* w,
+                        const double* dminv, const double* Lout,
+                        const double* Lin, const int32_t* nz_ptr,
+                        const int32_t* nz_slot, double* E, double* data,
+                        int64_t B, int Dout, int Din, int64_t nnz, double mu,
+                        void* stream);
+
 // K6b: dense blocked Cholesky of A (npad x npad, npad = nb s, row-major,
 // lower triangle read, overwritten by L) and the inverses of its diagonal
 // blocks inv (nb, s, s); T is a scratch panel of (nb - 1) s x s.  s = 128.

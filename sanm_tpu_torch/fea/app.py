@@ -25,8 +25,20 @@ and ``configs/test_single_tet_inverse.json`` for the single tet; with
 drop ``--device cpu``.  The inverse model's Jacobian is not symmetric, so
 its solve stays on host LU (SuperLU), as in the JAX package: ``auto``
 takes host LU and the Cholesky solvers (``band_chol``, ``dense_chol``,
-``spike_band``) raise.  The baselines, ``save_interm`` and the ``cg``
-solver belong to a later slice of the port and raise.
+``spike_band``) raise.  ``save_interm`` and the ``cg`` solver belong to
+a later slice of the port and raise.
+
+The classical baselines (``fea/baseline.py``: projected Newton with its
+unprojected refinement, Newton without projection, Levenberg-Marquardt)
+run in place of the ANM when a config has a ``"baseline"`` section, e.g.
+``configs/override_baseline.json`` (``override_baseline_noproj.json``,
+``override_baseline_levmar.json``) after the task config, in the
+``gravity`` and ``test_cuboid`` tasks and, as projected Newton, in the
+deform tasks; they write the JAX package's stat keys (``iter_tot``,
+``iter_refine``, ``force_rms``, ``time``, ...).  On the CPU::
+
+    python -m sanm_tpu_torch.fea --device cpu configs/sys.json \
+        configs/test_cuboid.json configs/override_baseline.json
 
 The solver is the config's ``"solver"`` (``auto``, ``host_lu``,
 ``band_chol``, ``dense_chol``, ``spike_band`` or ``dense``), e.g. an
@@ -224,11 +236,10 @@ def run_and_save(name, config, deformable: DeformableBody,
     """Solve the equilibrium of ``deformable`` under ``f_load_full``
     (V, 3): the deformed shape, or with ``inverse_mode`` the rest shape
     that the load deforms into the mesh; then :func:`_post_process`."""
-    if config.get("baseline") is not None:
-        raise SANMError("the baselines are not ported yet")
     if config.get("save_interm", False):
         raise SANMError("save_interm is not ported yet")
     dev = resolve_device(device)
+    baseline = config.get("baseline") is not None
     if progress:
         print("solving %s%s " % (name, " (inv)" if inverse_mode else ""),
               end="", flush=True)
@@ -236,10 +247,33 @@ def run_and_save(name, config, deformable: DeformableBody,
     timer = Timer().start()
 
     em = energy_model_of(config)
+    # a baseline builds its own model; this one only checks the solution
     model = (deformable.make_inverse(em, device=dev) if inverse_mode
-             else deformable.make_forward(em, device=dev))
+             else deformable.make_forward(em, device=dev,
+                                          jacobian=not baseline))
     f_load_sub = model.lt_inp.copy_vtx_values(f_load_full)
     jstat["time_prep"] = timer.stop().time()
+
+    if baseline:
+        from . import baseline as bl
+
+        sanm_assert(not inverse_mode)
+        stat = bl.run_from_config(config, deformable, f_load_full,
+                                  RMS_THRESH_FORCE_EQU, dev)
+        if os.environ.get("SANM_WARM_TIMING"):
+            # re-run with the kernels built and the caches warm: the
+            # reported times then exclude the kernel build, the analog
+            # of the reference timing a long-lived process
+            t = Timer().start()
+            stat = bl.run_from_config(config, deformable, f_load_full,
+                                      RMS_THRESH_FORCE_EQU, dev)
+            jstat["time_solve_warm"] = t.stop().time()
+        jstat.update(stat.as_json())
+        xt = model.lt_inp.copy_vtx_values(stat.vtx)
+        return _post_process(
+            name, config, deformable, model, xt, f_load_sub, f_load_full,
+            jstat, inverse_mode, save, allow_invcheck, progress, dev,
+            not config["baseline"].get("use_levmar", False))
 
     iter_begin = _total_nr_iter[0]
     timer.reset().start()
@@ -297,12 +331,12 @@ def run_and_save(name, config, deformable: DeformableBody,
 
 def _post_process(name, config, deformable, model, xt, f_load_sub,
                   f_load_full, jstat, inverse_mode, save, allow_invcheck,
-                  progress, dev):
+                  progress, dev, solution_sanity_check=True):
     out_mesh = deformable.mesh.copy()
     out_mesh.replace_with_mask(deformable.coord_fixed_mask, xt)
 
     jstat["force_rms_recomp"] = DeformableBody.compute_force_rms(
-        model, xt, f_load_sub, out_mesh, True
+        model, xt, f_load_sub, out_mesh, solution_sanity_check
     )
     jstat["mesh_V"] = deformable.mesh.nr_vertices
     jstat["mesh_F"] = deformable.mesh.nr_tet
@@ -448,9 +482,9 @@ def run_with_vtx_delta(name, config, deformable: DeformableBody, vtx_delta,
     updated in place) by implicit continuation in t from 0 to 1, then,
     when asked or when the force residual is above
     :data:`RMS_THRESH_FORCE_EQU`, refine with an order-6 equation solve
-    under ``refine_f_load``.  Returns the stat dict."""
-    if config.get("baseline") is not None:
-        raise SANMError("the baselines are not ported yet")
+    under ``refine_f_load``.  With a ``"baseline"`` config, projected
+    Newton from the moved boundary replaces both.  Returns the stat
+    dict."""
     if config.get("save_interm", False):
         raise SANMError("save_interm is not ported yet")
     dev = resolve_device(device)
@@ -461,7 +495,6 @@ def run_with_vtx_delta(name, config, deformable: DeformableBody, vtx_delta,
     vtx_dst_boundary = deformable.mesh.vertices + vtx_delta
     mask = deformable.coord_fixed_mask
     em = energy_model_of(config)
-    model = deformable.make_forward(em, vtx_coord, vtx_delta, device=dev)
 
     def eval_force_rms():
         m = deformable.make_forward(em, vtx_coord, device=dev,
@@ -475,6 +508,23 @@ def run_with_vtx_delta(name, config, deformable: DeformableBody, vtx_delta,
         p = m.eval_potential(m.x0())
         return -1.0 if p is None else p
 
+    if config.get("baseline") is not None:
+        from . import baseline as bl
+
+        stat = bl.solve_energy_min(
+            deformable.mesh.tets, deformable.mesh.vertices,
+            vtx_dst_boundary, None, mask,
+            bl.material_desc_from_config(config), RMS_THRESH_FORCE_EQU,
+            device=dev,
+        )
+        vtx_coord[:] = stat.vtx
+        vtx_coord[mask] = vtx_dst_boundary[mask]
+        _delta_stats(jstat, deformable, vtx_coord, eval_force_rms,
+                     eval_potential)
+        jstat.update(stat.as_json())
+        return jstat
+
+    model = deformable.make_forward(em, vtx_coord, vtx_delta, device=dev)
     iter_begin = _total_nr_iter[0]
     time_prep = timer.stop().time()
     timer.reset().start()

@@ -18,7 +18,8 @@ Port of ``sanm_tpu/fea/model.py`` (reference ``DeformableBody``,
 The model lives on one device: its remaps run through the K2 kernels
 (``solver/assemble.py``) and the stress in f64 torch (ARAP's SVD-W
 through K8a).  It hands the ANM driver its material's series and
-Jacobian assembly (:data:`MATERIAL_KERNELS`).
+Jacobian assembly (:data:`MATERIAL_KERNELS`), and the baselines K10's
+projected Hessian (:data:`HESS_PROJ`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..ops.inv_series import InvNHCSeries, InvNHISeries
 from ..ops.nhc_series import NHCSeries
 from ..ops.nhi_series import NHISeries
 from ..ops.svd_w import svd_w
-from ..solver.assemble import (DeviceAssembler, jac_asm, jac_asm_arap,
+from ..solver.assemble import (DeviceAssembler, hess_proj, hess_proj_arap,
+                               hess_proj_nhi, jac_asm, jac_asm_arap,
                                jac_asm_inv, jac_asm_inv_nhi, jac_asm_nhi)
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
@@ -50,6 +52,21 @@ def _jac_asm_arap(asm, elems, gin0):
     """K8a's SVD-W of F at ``gin0``, then K8c (and K3t)."""
     return jac_asm_arap(asm, elems,
                         *svd_w(elems.deformation_gradient(gin0)))
+
+
+def _hess_proj_arap(asm, elems, gin0):
+    """K8a's SVD-W of F at ``gin0``, then K10."""
+    return hess_proj_arap(asm, elems,
+                          *svd_w(elems.deformation_gradient(gin0)))
+
+
+#: per ported energy model, K10's projected Hessian of a forward model
+#: ``(asm, elems, gin0) -> (data, E)`` (the baselines)
+HESS_PROJ = {
+    EnergyModel.NEOHOOKEAN_C: hess_proj,
+    EnergyModel.NEOHOOKEAN_I: hess_proj_nhi,
+    EnergyModel.ARAP: _hess_proj_arap,
+}
 
 
 #: per ported (energy model, inverse), its series class (K1, K1n, K8b;
@@ -121,6 +138,15 @@ class ElasticForceModel:
         if not self.asm.jacobian:
             raise SANMError("a force-only model has no Jacobian plan")
         return self._kernels()[1](self.asm, self.elems, gin0)
+
+    def hess_proj(self, gin0):
+        """``(data, E)``: K10's eigen-projected Hessian of the energy at
+        ``gin0``, as CSR values and condensed element blocks in the ANM
+        Jacobian's sign (:data:`HESS_PROJ`; the baselines)."""
+        if self.inverse or not self.asm.jacobian:
+            raise SANMError("the projected Hessian needs a forward model "
+                            "with a Jacobian plan")
+        return HESS_PROJ[self.energy_model](self.asm, self.elems, gin0)
 
     def eval_force(self, x):
         """Nodal force (n,) at unknown vector x ((n + 1,) with the t

@@ -47,7 +47,8 @@ LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "nhi_step": 0, "jac_asm_nhi": 0, "grad_t": 0,
             "inv_nhc_step": 0, "inv_nhi_step": 0, "jac_asm_inv": 0,
             "jac_asm_inv_nhi": 0, "dense_factor": 0, "dense_solve": 0,
-            "spike_rhs_solve": 0, "spike_solve": 0}
+            "spike_rhs_solve": 0, "spike_solve": 0, "hess_proj": 0,
+            "hess_proj_nhi": 0, "hess_proj_arap": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -94,6 +95,10 @@ _SIGNATURES = {
     "sanm_spike_rhs_solve": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                              _P],
     "sanm_spike_solve": [_P] * 19 + [_I64, _I64, _I64, _I64, _P],
+    "sanm_hess_proj": [_P] * 9 + [_I64, _I32, _I32, _I64, _F64, _F64, _P],
+    "sanm_hess_proj_nhi": [_P] * 9 + [_I64, _I32, _I32, _I64, _F64, _F64,
+                                      _P],
+    "sanm_hess_proj_arap": [_P] * 10 + [_I64, _I32, _I32, _I64, _F64, _P],
 }
 
 

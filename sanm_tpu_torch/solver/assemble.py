@@ -14,6 +14,11 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   NHI; ``solver/anm.py:278`` on ``make_inverse``'s graph); each returns
   ``(data, grad_t, E)``, where grad_t, the assembled t column of the
   implicit continuation (None without one), is K3t :func:`grad_t`;
+* K10 :func:`hess_proj` (NHC), :func:`hess_proj_nhi` and
+  :func:`hess_proj_arap` replace ``_Kernels.hess_blocks`` of
+  ``sanm_tpu/fea/baseline.py:178`` (the baselines' eigen-projected
+  element Hessians): the material's dP/dF in F, projected, then K3's E
+  and CSR values, ``(data, E)``;
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
   (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
   stiffness E, for the refinement and the sanity residual of the band
@@ -344,46 +349,38 @@ def jac_asm_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
     return data, grad_t(asm, E), E
 
 
-def nhc_jacobian_plain(elems: Elements, gin0):
-    """(B, 9, 9) Jacobian of P(g) at ``gin0``: closed-form dP/dF of the
-    NHC stress chained through F = (g + bias) Dm^-1 (see
-    ``csrc/jac_asm.cu``)."""
+def nhc_dpdf_plain(elems: Elements, gin0):
+    """(B, 9, 9) dP_ij/dF_ml of the NHC stress at F = (g + bias) Dm^-1,
+    in F (before the chain through Dm^-1; see ``csrc/jac_asm.cu``)."""
     from ..ops.linalg import batched_det, batched_inv
 
     B = elems.B
-    M = elems.dminv.reshape(B, 3, 3)
     F = elems.deformation_gradient(gin0)
     G = batched_inv(F)
-    H = torch.bmm(M, G)  # H[n, i] = sum_l M[n, l] G[l, i]
+    GT = G.transpose(1, 2)
     c1 = elems.mu - elems.lam * torch.log(batched_det(F))
     eye = torch.eye(3, dtype=_f64, device=gin0.device)
-    # J4[b, i, j, m, n]
-    GT, HT = G.transpose(1, 2), H.transpose(1, 2)
-    J4 = (
-        elems.mu * eye[None, :, None, :, None]
-        * M.transpose(1, 2)[:, None, :, None, :]  # mu d_im M[n, j]
-        + c1[:, None, None, None, None]
-        * G[:, None, :, :, None] * HT[:, :, None, None, :]  # G[j,m] H[n,i]
-        + elems.lam
-        * GT[:, :, :, None, None] * HT[:, None, None, :, :]  # G[j,i] H[n,m]
-    )
-    return J4.reshape(B, 9, 9)
+    # D4[b, i, j, m, l]
+    D4 = (elems.mu * eye[None, :, None, :, None]
+          * eye[None, None, :, None, :]  # mu d_im d_jl
+          + c1[:, None, None, None, None]
+          * G[:, None, :, :, None] * GT[:, :, None, None, :]  # G_jm G_li
+          + elems.lam
+          * GT[:, :, :, None, None] * GT[:, None, None, :, :])  # G_ji G_lm
+    return D4.reshape(B, 9, 9)
 
 
-def nhi_jacobian_plain(elems: Elements, gin0):
-    """(B, 9, 9) Jacobian of P(g) at ``gin0``: closed-form dP/dF of the
-    NHI stress P = mu A F + c F^-T (A = J^(-2/3), c = (-mu/3) A Ic +
-    kappa J^2 - kappa J) chained through F = (g + bias) Dm^-1 (see
+def nhi_dpdf_plain(elems: Elements, gin0):
+    """(B, 9, 9) dP_ij/dF_ml of the NHI stress P = mu A F + c F^-T
+    (A = J^(-2/3), c = (-mu/3) A Ic + kappa J^2 - kappa J), in F (see
     ``csrc/jac_asm.cu``)."""
     from ..ops.linalg import batched_det, batched_inv
 
     B = elems.B
     mu, kap = elems.mu, elems.kappa
-    M = elems.dminv.reshape(B, 3, 3)
     F = elems.deformation_gradient(gin0)
     G = batched_inv(F)
-    H = torch.bmm(M, G)  # H[n, m] = sum_l M[n, l] G[l, m]
-    R = torch.bmm(F, M.transpose(1, 2))  # R[m, n] = sum_l F[m, l] M[n, l]
+    GT = G.transpose(1, 2)
     J = batched_det(F)
     Ic = (F * F).sum((1, 2))
     A = J ** (-2.0 / 3.0)
@@ -395,17 +392,49 @@ def nhi_jacobian_plain(elems: Elements, gin0):
         return x[:, None, None, None, None]
 
     eye = torch.eye(3, dtype=_f64, device=gin0.device)
-    GT, HT = G.transpose(1, 2), H.transpose(1, 2)
-    X = d1[:, None, None] * HT - a23[:, None, None] * R  # (B, m, n)
-    # J4[b, i, j, m, n]
-    J4 = (
-        b5(mu * A) * eye[None, :, None, :, None]
-        * M.transpose(1, 2)[:, None, :, None, :]  # mu A d_im M[n, j]
-        - b5(a23) * F[:, :, :, None, None] * HT[:, None, None, :, :]
-        + GT[:, :, :, None, None] * X[:, None, None, :, :]  # G[j, i] X[m, n]
-        - b5(c) * G[:, None, :, :, None] * HT[:, :, None, None, :]
-    )
-    return J4.reshape(B, 9, 9)
+    X = d1[:, None, None] * GT - a23[:, None, None] * F  # (B, m, l)
+    # D4[b, i, j, m, l]
+    D4 = (b5(mu * A) * eye[None, :, None, :, None]
+          * eye[None, None, :, None, :]  # mu A d_im d_jl
+          - b5(a23) * F[:, :, :, None, None] * GT[:, None, None, :, :]
+          + GT[:, :, :, None, None] * X[:, None, None, :, :]  # G_ji X_ml
+          - b5(c) * G[:, None, :, :, None] * GT[:, :, None, None, :])
+    return D4.reshape(B, 9, 9)
+
+
+def arap_dpdf_plain(elems: Elements, u, s, w):
+    """(B, 9, 9) dP/dF of the ARAP stress mu (F - W(F)) from the SVD-W
+    of F: per basis direction dF = e_m e_l^T, mu (dF - dW)."""
+    B = elems.B
+    D = torch.empty((B, 9, 9), dtype=_f64, device=u.device)
+    for q in range(9):
+        dF = torch.zeros((B, 3, 3), dtype=_f64, device=u.device)
+        dF[:, q // 3, q % 3] = 1.0
+        dw = svd_w_jvp(u, s, w, dF)[2]
+        D[:, :, q] = ((dF - dw) * elems.mu).reshape(B, 9)
+    return D
+
+
+def chain_plain(elems: Elements, D):
+    """(B, 9, 9) Jacobian in g from the F-space ``D`` (B, 9, 9) through
+    F = (g + bias) Dm^-1: Jg[(i,j), (m,n)] = sum_l D[(i,j), (m,l)]
+    Dm^-1[n, l]."""
+    B = elems.B
+    M = elems.dminv.reshape(B, 3, 3)
+    return torch.einsum("bpml,bnl->bpmn", D.reshape(B, 9, 3, 3),
+                        M).reshape(B, 9, 9)
+
+
+def nhc_jacobian_plain(elems: Elements, gin0):
+    """(B, 9, 9) Jacobian of the NHC stress P(g) at ``gin0``: its dP/dF
+    chained through F (:func:`chain_plain`)."""
+    return chain_plain(elems, nhc_dpdf_plain(elems, gin0))
+
+
+def nhi_jacobian_plain(elems: Elements, gin0):
+    """(B, 9, 9) Jacobian of the NHI stress P(g) at ``gin0``: its dP/dF
+    chained through F (:func:`chain_plain`)."""
+    return chain_plain(elems, nhi_dpdf_plain(elems, gin0))
 
 
 def _inv_factors(elems: InvElements, gin0):
@@ -470,19 +499,9 @@ def inv_nhi_jacobian_plain(elems: InvElements, gin0):
 
 
 def arap_jacobian_plain(elems: Elements, u, s, w):
-    """(B, 9, 9) Jacobian of P(g) = mu (F - W(F)) from the SVD-W of F:
-    per basis direction (m, n) of g, dF = e_m Dm^-1[n, :] and
-    dP = mu (dF - dW) with dW from :func:`svd_w_jvp`."""
-    B = elems.B
-    M = elems.dminv.reshape(B, 3, 3)
-    J = torch.empty((B, 9, 9), dtype=_f64, device=u.device)
-    for q in range(9):
-        m, n = divmod(q, 3)
-        dF = torch.zeros((B, 3, 3), dtype=_f64, device=u.device)
-        dF[:, m, :] = M[:, n, :]
-        dw = svd_w_jvp(u, s, w, dF)[2]
-        J[:, :, q] = ((dF - dw) * elems.mu).reshape(B, 9)
-    return J
+    """(B, 9, 9) Jacobian of the ARAP stress P(g) from the SVD-W of F:
+    its dP/dF chained through F (:func:`chain_plain`)."""
+    return chain_plain(elems, arap_dpdf_plain(elems, u, s, w))
 
 
 def _assemble_plain(asm: DeviceAssembler, J):
@@ -518,6 +537,117 @@ def jac_asm_inv_nhi_plain(asm: DeviceAssembler, elems: InvElements, gin0):
 def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
     """Plain torch version of K8c (:func:`jac_asm_arap`)."""
     return _assemble_plain(asm, arap_jacobian_plain(elems, u, s, w))
+
+
+# ---------------------------------------------------------------------------
+# K10: the eigen-projected element Hessian of the baselines
+# ---------------------------------------------------------------------------
+
+
+def _hess_proj_launch(asm, counter, fn_name, ptrs, consts, dev):
+    """Launch a K10 entry point on the material's pointers ``ptrs`` and
+    constants ``consts``; returns ``(data, E)``."""
+    E = torch.empty((asm.B, asm.Dout, asm.Din), dtype=_f64, device=dev)
+    data = torch.empty((asm.nnz,), dtype=_f64, device=dev)
+    kernels.launch(counter, fn_name, *ptrs, asm.Lout.data_ptr(),
+                   asm.Lin.data_ptr(), asm.nz_ptr.data_ptr(),
+                   asm.nz_slot.data_ptr(), E.data_ptr(), data.data_ptr(),
+                   asm.B, asm.Dout, asm.Din, asm.nnz, *consts)
+    return data, E
+
+
+def _hess_proj_nh(asm, elems, gin0, counter, fn_name, c2, plain):
+    _check_jac(asm, elems, gin0)
+    if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
+                           asm.nz_ptr):
+        return plain(asm, elems, gin0)
+    return _hess_proj_launch(
+        asm, counter, fn_name, (gin0.data_ptr(), elems.bias.data_ptr(),
+                                elems.dminv.data_ptr()),
+        (float(elems.mu), float(c2)), gin0.device)
+
+
+def hess_proj(asm: DeviceAssembler, elems: Elements, gin0):
+    """K10: per element the eigen-projected dP/dF of the NHC stress at
+    graph input ``gin0`` (B, 9), D+ = V max(L, 0) V^T of its symmetric
+    part, chained to g; then E (B, Dout, Din) and the CSR values (nnz,)
+    as :func:`jac_asm`, in the ANM Jacobian's sign: minus the projected
+    Hessian of the energy.  Returns ``(data, E)``; launches the kernel
+    for card tensors, runs :func:`hess_proj_plain` for CPU tensors."""
+    return _hess_proj_nh(asm, elems, gin0, "hess_proj", "sanm_hess_proj",
+                         elems.lam, hess_proj_plain)
+
+
+def hess_proj_nhi(asm: DeviceAssembler, elems: Elements, gin0):
+    """K10 for the NHI stress (:func:`hess_proj`)."""
+    return _hess_proj_nh(asm, elems, gin0, "hess_proj_nhi",
+                         "sanm_hess_proj_nhi", elems.kappa,
+                         hess_proj_nhi_plain)
+
+
+def hess_proj_arap(asm: DeviceAssembler, elems: Elements, u, s, w):
+    """K10 for the ARAP stress (:func:`hess_proj`), from K8a's SVD-W
+    ``(u, s, w)`` of F at the point."""
+    _check_3x3(asm)
+    B = asm.B
+    kernels.check(u, "u", (B, 3, 3), _f64)
+    kernels.check(s, "s", (B, 3), _f64)
+    kernels.check(w, "w", (B, 3, 3), _f64)
+    kernels.check(elems.dminv, "dminv", (B, 9), _f64)
+    if not kernels.on_card(u, s, w, elems.dminv, asm.Lin, asm.nz_ptr):
+        return hess_proj_arap_plain(asm, elems, u, s, w)
+    return _hess_proj_launch(
+        asm, "hess_proj_arap", "sanm_hess_proj_arap",
+        (u.data_ptr(), s.data_ptr(), w.data_ptr(), elems.dminv.data_ptr()),
+        (float(elems.mu),), u.device)
+
+
+#: blocks per ``torch.linalg.eigh`` call: on the card cuSOLVER's batched
+#: syev refuses batches of 32,768 and more
+EIGH_CHUNK = 16384
+
+
+def eigh_blocks(A):
+    """``torch.linalg.eigh`` of the symmetric blocks ``A`` (B, m, m), in
+    chunks of :data:`EIGH_CHUNK`."""
+    parts = [torch.linalg.eigh(A[i:i + EIGH_CHUNK])
+             for i in range(0, A.shape[0], EIGH_CHUNK)]
+    return (torch.cat([w for w, _ in parts]),
+            torch.cat([v for _, v in parts]))
+
+
+def project_plain(elems: Elements, D):
+    """K10's projection of the F-space blocks ``D`` (B, 9, 9): D+ =
+    V max(L, 0) V^T of sym(D) by ``torch.linalg.eigh``
+    (:func:`eigh_blocks`), chained to g (:func:`chain_plain`).  A
+    non-finite block (J <= 0) gives NaN, as in the kernel (``eigh`` would
+    fail on it)."""
+    ok = torch.isfinite(D).all(dim=2).all(dim=1)[:, None, None]
+    w, v = eigh_blocks(torch.where(ok, 0.5 * (D + D.transpose(1, 2)), 0.0))
+    Dp = torch.where(ok, (v * w.clamp(min=0.0)[:, None, :])
+                     @ v.transpose(1, 2), float("nan"))
+    return chain_plain(elems, Dp)
+
+
+def hess_proj_plain(asm: DeviceAssembler, elems: Elements, gin0):
+    """Plain torch version of K10 (:func:`hess_proj`, NHC)."""
+    data, _, E = _assemble_plain(
+        asm, project_plain(elems, nhc_dpdf_plain(elems, gin0)))
+    return data, E
+
+
+def hess_proj_nhi_plain(asm: DeviceAssembler, elems: Elements, gin0):
+    """Plain torch version of K10 for NHI (:func:`hess_proj_nhi`)."""
+    data, _, E = _assemble_plain(
+        asm, project_plain(elems, nhi_dpdf_plain(elems, gin0)))
+    return data, E
+
+
+def hess_proj_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
+    """Plain torch version of K10 for ARAP (:func:`hess_proj_arap`)."""
+    data, _, E = _assemble_plain(
+        asm, project_plain(elems, arap_dpdf_plain(elems, u, s, w)))
+    return data, E
 
 
 # ---------------------------------------------------------------------------

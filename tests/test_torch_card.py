@@ -539,3 +539,60 @@ def test_inverse_jacobian(inv_models):
     assert g.jac_asm(gin)[0].shape == data.shape
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == n0 + 2
+
+
+HESS_TOL = 1e-11  # K10: Jacobi against torch's eigh, D+ unique
+
+
+@pytest.fixture(params=["neohookean_c", "neohookean_i", "arap"])
+def hess_model(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    mesh = TetrahedralMesh.make_cuboid(6, 4, 4, 0.025)
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                          mesh)
+    body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.0125, :] = True
+    return body.make_forward(EnergyModel.from_name(request.param),
+                             device="cuda")
+
+
+def test_hess_proj(hess_model):
+    """K10 against its plain version on the same card tensors, at rest
+    (degenerate spectra), squashed (indefinite) and at a random state;
+    an inverted state gives non-finite blocks."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    g = hess_model
+    asm, elems = g.asm, g.elems
+    name = {"neohookean_c": "hess_proj", "neohookean_i": "hess_proj_nhi",
+            "arap": "hess_proj_arap"}[g.energy_model.value]
+    verts = g.lt_inp.mesh.vertices
+    free = ~g.lt_inp.fixed_mask
+    rng = np.random.default_rng(16)
+    squashed = verts * np.array([1.0, 1.0, 0.4])
+    n0 = kernels.LAUNCHES[name]
+    for x in (verts[free], squashed[free],
+              verts[free] + rng.uniform(-2e-3, 2e-3, asm.n)):
+        gin = asm.apply_in(x)
+        if name == "hess_proj_arap":
+            from sanm_tpu_torch.ops.svd_w import svd_w
+
+            args = svd_w(elems.deformation_gradient(gin))
+        else:
+            args = (gin,)
+        data, E = getattr(K, name)(asm, elems, *args)
+        data_p, E_p = getattr(K, name + "_plain")(asm, elems, *args)
+        assert rel(E, E_p) <= HESS_TOL
+        assert rel(data, data_p) <= HESS_TOL
+    assert g.hess_proj(gin)[0].shape == data.shape
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 4
+    if name != "hess_proj_arap":
+        bad = verts.copy()
+        bad[bad[:, 0] > 0.1, 0] = 0.0  # the far layers past x = 0: J < 0
+        _, E = g.hess_proj(asm.apply_in(bad[free]))
+        assert not bool(torch.isfinite(E).all())

@@ -422,6 +422,59 @@ def test_inverse_wrappers_do_not_fall_back():
     assert kernels.LAUNCHES == before
 
 
+def test_hess_proj_wrappers_do_not_fall_back():
+    """K10 (hess_proj, hess_proj_nhi, hess_proj_arap) raises on a meta
+    tensor, a wrong dtype or shape and a non-contiguous tensor; on CPU
+    tensors it runs its plain version and counts no launch; the model
+    refuses it for an inverse or a force-only model."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.ops.svd_w import svd_w
+    from sanm_tpu_torch.solver import assemble
+
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          TetrahedralMesh.make_cuboid(3, 2, 2, 0.1))
+    body.coord_fixed_mask[body.mesh.vertices[:, 0] <= 0.05, :] = True
+    before = dict(kernels.LAUNCHES)
+    for em, fn in ((EnergyModel.NEOHOOKEAN_C, assemble.hess_proj),
+                   (EnergyModel.NEOHOOKEAN_I, assemble.hess_proj_nhi)):
+        model = body.make_forward(em, device="cpu")
+        asm, elems = model.asm, model.elems
+        B = asm.B
+        gin0 = asm.apply_in(model.x0())
+        with pytest.raises(SANMError):
+            fn(asm, elems, gin0.to("meta"))
+        with pytest.raises(SANMError):  # wrong dtype
+            fn(asm, elems, gin0.float())
+        with pytest.raises(SANMError):  # wrong shape
+            fn(asm, elems, gin0[:, :8])
+        with pytest.raises(SANMError):  # not contiguous
+            fn(asm, elems, torch.zeros(9, B, dtype=torch.float64).T)
+        fn(asm, elems, gin0)
+    model = body.make_forward(EnergyModel.ARAP, device="cpu")
+    asm, elems = model.asm, model.elems
+    u, s, w = svd_w(elems.deformation_gradient(asm.apply_in(model.x0())))
+    with pytest.raises(SANMError):
+        assemble.hess_proj_arap(asm, elems, u.to("meta"), s.to("meta"),
+                                w.to("meta"))
+    with pytest.raises(SANMError):
+        assemble.hess_proj_arap(asm, elems, u, s.float(), w)
+    with pytest.raises(SANMError):
+        assemble.hess_proj_arap(asm, elems, u, s[:, :2], w)
+    with pytest.raises(SANMError):
+        assemble.hess_proj_arap(asm, elems, u.transpose(1, 2), s, w)
+    assemble.hess_proj_arap(asm, elems, u, s, w)
+    model.hess_proj(asm.apply_in(model.x0()))
+    gin0 = asm.apply_in(model.x0())
+    for bad in (body.make_inverse(EnergyModel.NEOHOOKEAN_C, device="cpu"),
+                body.make_forward(EnergyModel.ARAP, device="cpu",
+                                  jacobian=False)):
+        with pytest.raises(SANMError):
+            bad.hess_proj(gin0)
+    assert kernels.LAUNCHES == before
+
+
 def test_direct_wrappers_do_not_fall_back():
     """K6b dense_factor, K6c dense_solve, K7b spike_rhs_solve and K7c
     spike_solve (and K5a's dense and SPIKE scatters) raise on a meta
