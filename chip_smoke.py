@@ -38,15 +38,22 @@ Phases, each timed:
    matrix of the same Jacobian, K7b (spike_rhs_solve) on its SPIKE
    spikes' right-hand sides and K7c (spike_solve) on the scaled load,
    with the band rows' dense library times as their yardsticks (K7b: a
-   batched cholesky_solve with the dense local factors);
+   batched cholesky_solve with the dense local factors); K4 COO
+   (csr_matvec, csr_matvec_t on a seeded vector, diag_blocks) and K9
+   (pcg_step: one iteration and one chunk of 64 from the start of a solve
+   of the load, against the plain version on the CPU, whose sums run in
+   one order; both repeat their bits) on the same Jacobian, and that
+   solve's relative residual and CG functional along its 2,048
+   iterations (printed);
 6. arap: ``gravity`` on armadillo-small with ``override_arap.json`` and
    ``override_stiff_material.json`` (ARAP, the reference protocol's
    cell), with ``"solver": "host_lu"`` (cold) and with
    ``"solver": "band_chol"`` (cold and warm): force-RMS <= 1e-10, no
-   inverted element,
-   K8a-c (svd_w, arap_step, jac_asm_arap) launched in each run, the two
-   equilibria within ``BAND_COORD_RTOL``; a fallback of the band factor
-   to host LU is counted and printed, and passes if the run converges;
+   inverted element, the relative displacement within 1e-9 relative of
+   the JAX package's CPU value (``ARAP_DISPLACEMENT``), K8a-c (svd_w,
+   arap_step, jac_asm_arap) launched, the two equilibria within
+   ``BAND_COORD_RTOL``; a fallback of the band factor to host LU is
+   counted and printed, and passes if the run converges;
 7. arap kernels: K8a (svd_w), K8c (jac_asm_arap) at the ARAP equilibrium
    and K8b (arap_step) along a real first ARAP restart (bias orders
    2..20), each against its plain version, with K8a's flip choice
@@ -54,12 +61,11 @@ Phases, each timed:
    where every element flips), timed as in 5;
 8. nhi: ``gravity`` on ``configs/human.json`` as it is (NHI, 78,067
    tets, order 20, Pade on) with ``"solver": "band_chol"``, cold and
-   warm, and with ``"solver": "host_lu"``, cold: force-RMS <= 1e-10, no
-   inverted element, the relative displacement within 1e-9 relative of
-   the JAX package's CPU value (``HUMAN_DISPLACEMENT``), the two
-   equilibria within ``BAND_COORD_RTOL``, K1n, K3n, K2, K4 and K5a-c
-   launched in the band run; a band fallback to host LU is counted and
-   printed, and passes if the run converges;
+   warm: force-RMS <= 1e-10, no inverted element, the relative
+   displacement within 1e-9 relative of the JAX package's CPU value
+   (``HUMAN_DISPLACEMENT``), K1n, K3n, K2, K4 and K5a-c launched; a band
+   fallback to host LU is counted and printed, and passes if the run
+   converges (its host-LU leg runs under ``--records``);
 9. nhi kernels: K3n (jac_asm_nhi) at the human equilibrium and K1n
    (nhi_step) along a real first restart from the rest shape (bias
    orders 2..20, solved with the card's band factor), each against its
@@ -82,7 +88,9 @@ Phases, each timed:
 12. parity: NHC, NHI and ARAP equilibria of a small cuboid, order 20,
    solved through the kernels and through the plain versions on the CPU,
    with host LU, the band, the dense and the SPIKE solvers: same
-   iterations, coordinates within ``PARITY_RTOL``;
+   iterations, coordinates within ``PARITY_RTOL``; and the Tikhonov
+   cuboid of ``tests/test_app_cli.py`` (``CG_PENALTY_TASK``) on ``cg``,
+   card against CPU, with csr_matvec_t launched;
 13. profile: one warm band_chol re-solve of armadillo-small (NHC) under
    ``torch.profiler``: device time by kernel and the card's busy share.
 
@@ -122,6 +130,15 @@ Phases, each timed:
    ``hess_proj_arap`` and the cuboid's for ``hess_proj`` and
    ``hess_proj_nhi``, whose rows say so (``launches_on``).
 
+18. cg: ``test_cuboid`` on ``configs/test_cuboid.json`` as it is (20 x 8
+   x 8 vertices, NHC, order 20) with ``"solver": "cg"`` (the block-Jacobi
+   PCG on the card), cold and warm: force-RMS <= 1e-10, no inverted
+   element, ``solver_resolved`` cg, the displacement within 1e-9 relative
+   of the JAX package's CPU value (``CG_DISPLACEMENT``), K4 COO
+   (csr_matvec, diag_blocks) and K9 (pcg_step) launched; the restarts
+   beside the JAX package's, the PCG iterations per solve and the
+   factor, solve and step times are printed.
+
 ``python3 chip_smoke.py --records [--out DIR]`` instead runs only the
 build and :func:`phase_records`: ``configs/jet.json`` (NHI, 47,668 tets)
 on ``band_chol`` and on ``host_lu``, cold (restarts, force-RMS, the
@@ -132,7 +149,14 @@ baseline (``override_baseline.json``) with the checks of 17 on bar NHC
 gravity (``bar.json`` + ``override_neo_comp.json``, 44 + 2 iterations)
 and on armadillo-small NHC gravity, as bench.py's Newton leg runs it (36
 + 2 iterations of host SuperLU; its displacement within 1e-8 relative
-of ``ARMADILLO_DISPLACEMENT``).
+of ``ARMADILLO_DISPLACEMENT``), the host-LU leg of 8 (human NHI on
+band_chol and host_lu with the equilibria compared within
+``BAND_COORD_RTOL``), armadillo-small NHC gravity on ``cg``, cold (its
+expected outcome is the JAX package's: ``SANMNumericalError``, caught
+and reported), and the solve of 5's 2,048 PCG iterations of the gravity
+load at the armadillo-small NHC equilibrium run by the kernel on the
+card and by the plain version on the CPU side by side (relative
+residual and CG functional, printed).
 
 It then prints the ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -168,6 +192,15 @@ DIRECT_KERNELS = {"dense_chol": ("dense_factor", "dense_solve"),
 # the ARAP cell: armadillo-small with the ARAP and stiff-material overrides
 ARAP_CONFIGS = [CONFIG] + [os.path.join(ROOT, "configs", f) for f in (
     "override_arap.json", "override_stiff_material.json")]
+# the JAX package's relative displacement of that task on the CPU (f64,
+# host LU, 4 restarts, force-RMS 1.81e-14), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/armadillo_small.json configs/override_arap.json \
+#       configs/override_stiff_material.json
+# (the stat JSON armadillo-small-i0-arap.json); the card's must agree to
+# 1e-9 relative
+ARAP_DISPLACEMENT = 0.16226651633126318
+ARAP_CPU_RESTARTS = 4
 # the NHI cell: human as it is (NHI is its own energy model)
 HUMAN_CONFIGS = [os.path.join(ROOT, "configs", "human.json")]
 # the JAX package's relative displacement of that task on the CPU (f64,
@@ -260,6 +293,25 @@ BASELINE_CELL_KERNELS = {"arap bend": ("hess_proj_arap", "jac_asm_arap"),
 # the FEA_INVCHECK round trip's restored rest vertices vs the original,
 # in norm (the TPU record reads 5.5e-12, RESULTS.md:429-437)
 INVCHECK_TOL = 1e-9
+# the cg cell: configs/test_cuboid.json (20 x 8 x 8 vertices, NHC, order 20)
+# with the PCG solver, and the JAX package's relative displacement of that
+# task on the CPU (f64, 1 restart, force-RMS 8.39e-11), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/test_cuboid.json cg.json
+# where cg.json holds {"solver": "cg"} (the stat JSON
+# cuboid-i0-neohookean_c.json); the card's must agree to 1e-9 relative
+CG_CONFIGS = [os.path.join(ROOT, "configs", "test_cuboid.json")]
+CG_DISPLACEMENT = 0.06289575066704964
+CG_RESTARTS = 1
+# the Tikhonov case of tests/test_app_cli.py:55-74 with the PCG solver
+CG_PENALTY_TASK = {
+    "func": "test_cuboid", "energy_model": "neohookean_c",
+    "material": {"type": "young_poisson", "young": 1e7, "poisson": 0.45},
+    "spacing": 0.025, "x": 3, "y": 2, "z": 2, "order": 8,
+    "out_filename": "cub_l2", "xcoeff_l2_penalty": 1e-5,
+    "disable_anm_sanity_check": True, "solver": "cg"}
+CG_PENALTY_ONLY = ("3x2x2 cuboid with xcoeff_l2_penalty 1e-5 on cg "
+                   "(parity phase): the Tikhonov right-hand side A^T b")
 # H100 SXM data sheet: HBM3 3.35 TB/s, f64 without tensor cores 34
 # TFLOP/s, f64 on the tensor cores (band_factor's mma.sync) 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -282,7 +334,8 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "inv_nhi_step": 1e-11, "jac_asm_inv": 1e-12, "jac_asm_inv_nhi": 1e-12,
        "dense_factor": 1e-10, "dense_solve": 1e-12, "spike_rhs_solve": 1e-12,
        "spike_solve": 1e-12, "hess_proj": 1e-11, "hess_proj_nhi": 1e-11,
-       "hess_proj_arap": 1e-11}
+       "hess_proj_arap": 1e-11, "csr_matvec": 1e-13, "csr_matvec_t": 1e-13,
+       "diag_blocks": 0.0, "pcg_step": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -303,6 +356,7 @@ INV_KERNELS = ("inv_nhc_step", "inv_nhi_step", "jac_asm_inv",
                "jac_asm_inv_nhi")
 DIRECT_KERNEL_NAMES = sum(DIRECT_KERNELS.values(), ())
 BASELINE_KERNELS = ("hess_proj", "hess_proj_nhi", "hess_proj_arap")
+CG_KERNELS = ("csr_matvec", "csr_matvec_t", "diag_blocks", "pcg_step")
 REPLACES = {
     "remap_in": "sanm_tpu/solver/remap.py:308",
     "remap_out": "sanm_tpu/solver/remap.py:327",
@@ -329,6 +383,10 @@ REPLACES = {
     "hess_proj": "sanm_tpu/fea/baseline.py:178",
     "hess_proj_nhi": "sanm_tpu/fea/baseline.py:178",
     "hess_proj_arap": "sanm_tpu/fea/baseline.py:178",
+    "csr_matvec": "sanm_tpu/solver/remap.py:439",
+    "csr_matvec_t": "sanm_tpu/solver/remap.py:446",
+    "diag_blocks": "sanm_tpu/solver/remap.py:423",
+    "pcg_step": "sanm_tpu/solver/linear.py:671",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -356,6 +414,10 @@ SOURCES = {
     "hess_proj": "sanm_tpu_torch/csrc/jac_asm.cu",
     "hess_proj_nhi": "sanm_tpu_torch/csrc/jac_asm.cu",
     "hess_proj_arap": "sanm_tpu_torch/csrc/jac_asm.cu",
+    "csr_matvec": "sanm_tpu_torch/csrc/cg.cu",
+    "csr_matvec_t": "sanm_tpu_torch/csrc/cg.cu",
+    "diag_blocks": "sanm_tpu_torch/csrc/cg.cu",
+    "pcg_step": "sanm_tpu_torch/csrc/cg.cu",
 }
 
 _T0 = time.perf_counter()
@@ -871,6 +933,7 @@ def phase_kernels(torch, timing, verts_eq):
     k10_row(torch, timing, report, "hess_proj", model, (gin,))
     libs = band_rows(torch, timing, model, data, E, x_eq, f_load, report)
     direct_rows(torch, timing, model, data, f_load, report, *libs)
+    cg_rows(torch, timing, model, data, f_load, report)
     del data, E
 
     # ---- K2 remap_out on the stress at the equilibrium; its error is
@@ -1203,6 +1266,308 @@ def direct_rows(torch, timing, model, data, f_load, report, f_lib_ms,
     say("direct kernels: %.2f s" % (time.perf_counter() - t0))
 
 
+#: one chunk of 64 PCG iterations from the start of a solve, the kernel
+#: on the card against the plain version on the CPU, max |diff| / max
+#: |plain| over x, r, z, p.  Both repeat their bits (checked), so the
+#: reading is stable.  CG carries each iteration's rounding into every
+#: later direction: a 1e-16 relative change of b moves the plain chunk by
+#: up to ~1e-6 at armadillo-small (printed beside the reading), and the
+#: kernel sums in another order than the plain version, ~1e-15 relative
+#: apart after one iteration (held to TOL["pcg_step"]), ten times a
+#: 1e-16 change; so a chunk may differ by up to ten times the
+#: perturbation's effect
+PCG_CHUNK_TOL = 1e-5
+
+
+def pcg_trace(torch, csr, data, binv, b):
+    """The 2,048 PCG iterations of ``SparseCG`` (chunks of 64, no early
+    stop) on ``b``, on the device of the tensors (the kernel on the card,
+    the plain version on the CPU): after every 512, the relative residual
+    of the recurrence and the true one ||b - A x|| / ||b||; after every
+    chunk, the CG functional phi = b.x - x.(A x) / 2, which decreases in
+    exact arithmetic when -A is positive definite (phi - phi(x*) is half
+    the error's squared -A norm).  Returns them and phi's largest rise
+    over a chunk, relative to |phi| at the end (0 when it never rose)."""
+    from sanm_tpu_torch.solver import assemble as K4
+    from sanm_tpu_torch.solver import linear as K9
+
+    st = K9.PCGState(b, binv)
+    bnorm = float(torch.linalg.vector_norm(b))
+    rec, true, phi = {}, {}, []
+    while st.it < K9.SparseCG.MAX_ITER:
+        K9.pcg_chunk(csr, data, binv, st, K9.SparseCG.CHUNK,
+                     K9.SparseCG.TOL)
+        ax = K4.csr_matvec(csr, data, st.x)
+        phi.append(float(b @ st.x - 0.5 * (st.x @ ax)))
+        if st.it % 512 == 0:
+            rec[st.it] = float(st.slot()[1].sqrt()) / bnorm
+            true[st.it] = float(torch.linalg.vector_norm(b - ax)) / bnorm
+    rose = max([0.0] + [q - p for p, q in zip(phi, phi[1:])]) / abs(phi[-1])
+    return {"rel_residual": rec, "true_rel_residual": true,
+            "phi": {(i + 1) * 64: v for i, v in enumerate(phi)
+                    if (i + 1) % 8 == 0}, "phi_rose": rose}
+
+
+def trace_line(tr):
+    """One line of :func:`pcg_trace`'s readings."""
+    return "; ".join("%d: %.3e / %.3e, phi %.9e" % (
+        it, tr["rel_residual"][it], tr["true_rel_residual"][it],
+        tr["phi"][it]) for it in tr["rel_residual"]) + (
+        "; phi's largest rise over a chunk, relative: %.1e" % tr["phi_rose"])
+
+
+def cg_rows(torch, timing, model, data, f_load, report):
+    """K4 COO and K9 on the CSR values ``data`` of the Jacobian at the
+    equilibrium, with the gravity load ``f_load`` as vector and
+    right-hand side: csr_matvec and csr_matvec_t, diag_blocks, one PCG
+    iteration and one chunk of 64 from the same start, each against its
+    plain version (the products on a seeded vector); then the relative
+    residual of the solve's 2,048 iterations (printed, not checked)."""
+    import numpy as np
+
+    from sanm_tpu_torch.solver import assemble as K4
+    from sanm_tpu_torch.solver import linear as K9
+
+    t0 = time.perf_counter()
+    csr = model.asm.csr_maps
+    n, nnz = csr.n, csr.nnz
+    b = torch.as_tensor(np.asarray(f_load), dtype=torch.float64).cuda()
+    # the products on a seeded vector (A times the load nearly cancels in
+    # the interior rows, which makes a relative error meaningless)
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(n)).cuda()
+
+    # ---- csr_matvec, csr_matvec_t on v ----
+    # the bound counts what A x or A^T y needs, A's CSR (row pointer,
+    # columns, values), the vector and the result, not csr_matvec_t's
+    # own gather map
+    t_ptr, t_src, t_rows = csr.transposed
+    for name, fn, plain, lib_mat in (
+            ("csr_matvec", K4.csr_matvec, K4.csr_matvec_plain,
+             (csr.row_ptr, csr.cols, data)),
+            ("csr_matvec_t", K4.csr_matvec_t, K4.csr_matvec_t_plain,
+             (t_ptr, t_rows, data[t_src.long()]))):
+        y = fn(csr, data, v)
+        yp = plain(csr, data, v)
+        err, rel = rel_err(y, yp)
+        S = torch.sparse_csr_tensor(lib_mat[0].long(), lib_mat[1].long(),
+                                    lib_mat[2], size=(n, n))
+        lib = timing.ms(lambda: S @ v)
+        err_lib, _ = rel_err(S @ v, yp)
+        report(name, err, rel,
+               timing.kernel_ms(lambda: fn(csr, data, v)),
+               timing.ms(lambda: plain(csr, data, v)),
+               bound_ms(nbytes(csr.row_ptr, csr.cols, data, v, y), 2 * nnz),
+               lib, "(library: CSR SpMV%s, err %.1e)"
+               % (" of A^T" if name == "csr_matvec_t" else "", err_lib))
+        del S
+
+    # ---- diag_blocks ----
+    blk = K4.diag_blocks(csr, data)
+    err, rel = rel_err(blk, K4.diag_blocks_plain(csr, data))
+    read = int((csr.dmap < nnz).sum())
+    report("diag_blocks", err, rel,
+           timing.kernel_ms(lambda: K4.diag_blocks(csr, data)),
+           timing.ms(lambda: K4.diag_blocks_plain(csr, data)),
+           bound_ms(nbytes(csr.dmap, blk) + 8 * read, 0),
+           extra="(%d of %d block entries read)" % (read, blk.numel()))
+
+    # ---- pcg_step: one iteration and one chunk of 64 from the start,
+    # against the plain version on the CPU, whose sums run in one order ----
+    cg = K9.SparseCG(csr, data)
+    tol = K9.SparseCG.TOL
+    # M^-1 is torch.linalg.inv of the blocks on the card (the JAX package
+    # calls jnp.linalg.inv), held against the same call on the CPU
+    eye = torch.eye(3, dtype=torch.float64)
+    inv_err = rel_err(cg.binv.cpu(),
+                      torch.linalg.inv(blk.cpu() + 1e-300 * eye))
+    say("pcg_step: M^-1 (torch.linalg.inv of the %d diagonal blocks) on the "
+        "card vs on the CPU: max abs err %.3e, rel %.3e" % (
+            blk.shape[0], *inv_err))
+    st0 = K9.PCGState(b, cg.binv)
+    csr_c, data_c, binv_c = csr.to("cpu"), data.cpu(), cg.binv.cpu()
+
+    def run(steps, on_card=True, start=st0):
+        if on_card:
+            st = K9.pcg_chunk(csr, data, cg.binv, start.clone(), steps, tol)
+        else:
+            st = K9.pcg_chunk_plain(csr_c, data_c, binv_c,
+                                    start.clone("cpu"), steps, tol)
+        return [t.cpu() for t in (st.x, st.r, st.z, st.p, st.S)]
+
+    errs = [rel_err(a, c) for a, c in zip(run(1), run(1, False))]
+    err1, rel1 = max(e for e, _ in errs), max(r for _, r in errs)
+    kern64, plain64 = run(64), run(64, False)
+    same = (all(torch.equal(a, c) for a, c in zip(kern64, run(64))),
+            all(torch.equal(a, c) for a, c in zip(plain64, run(64, False))))
+    rel64 = max(rel_err(a, c)[1] for a, c in zip(kern64[:4], plain64[:4]))
+    noise = 1e-16 * torch.as_tensor(
+        np.random.default_rng(1).standard_normal(n)).cuda()
+    moved = max(rel_err(a, c)[1] for a, c in zip(
+        run(64, False, K9.PCGState(b * (1 + noise), cg.binv))[:4],
+        plain64[:4]))
+    say("pcg_step: a chunk of 64 iterations from the start, kernel on the "
+        "card vs plain on the CPU: rel err %.3e (tol %.0e); each repeats "
+        "its bits: kernel %s, plain %s; the plain chunk moves by %.3e when "
+        "b is perturbed by 1e-16 relative" % (rel64, PCG_CHUNK_TOL, *same,
+                                               moved))
+    require(all(same), "a PCG chunk does not repeat its bits")
+    require(rel64 <= PCG_CHUNK_TOL, "pcg_step's chunk disagrees with its "
+            "plain version")
+    st_k, st_p = st0.clone(), st0.clone()
+    ms = timing.kernel_ms(
+        lambda: K9.pcg_chunk(csr, data, cg.binv, st_k, 64, tol), reps=5)
+    plain_ms = timing.ms(
+        lambda: K9.pcg_chunk_plain(csr, data, cg.binv, st_p, 64, tol),
+        reps=2, warmup=1)
+    # a chunk reads A, M^-1 and x, r, p once and writes x, r, z, p and the
+    # scalars; per iteration 2 nnz for A p and 17 n for the dot products,
+    # the updates and M^-1 r
+    ins = (csr.row_ptr, csr.cols, data, cg.binv, st0.x, st0.r, st0.p)
+    outs = (st0.x, st0.r, st0.z, st0.p, st0.S)
+    report("pcg_step", err1, rel1, ms, plain_ms,
+           bound_ms(nbytes(*ins, *outs), 64 * (2 * nnz + 17 * n)),
+           extra="(error: one iteration, against the plain version on the "
+                 "CPU; ms: one chunk of 64; %.2f us an iteration)"
+                 % (ms * 1e3 / 64))
+
+    # ---- a solve of the load, 2,048 iterations (it does not converge) ----
+    say("cg on the armadillo-small Jacobian at the equilibrium, gravity "
+        "load, 2,048 iterations on the card (the JAX package stops there), "
+        "relative residual of the recurrence / true and the CG functional "
+        "after each number of iterations: %s"
+        % trace_line(pcg_trace(torch, csr, data, cg.binv, b)))
+    del cg, st0, st_k, st_p
+    say("cg kernels: %.2f s" % (time.perf_counter() - t0))
+
+
+def run_cg_cuboid(torch):
+    """``test_cuboid`` (configs/test_cuboid.json) with ``"solver": "cg"``
+    through the port's entry point on the card, cold and one warm
+    re-solve, the launch counts set to 0 just before; returns the task
+    result, the counts, the scope stats and the PCG counters."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.fea import app
+    from sanm_tpu_torch.solver.linear import SparseCG
+    from sanm_tpu_torch.utils import ScopedProfiler
+
+    os.environ["SANM_WARM_TIMING"] = "1"
+    ScopedProfiler.enabled = True
+    ScopedProfiler.reset()
+    SparseCG.reset_stats()
+    cfg = dict(app.merge_configs(CG_CONFIGS), solver="cg")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            kernels.reset_launches()
+            res = app.test_cuboid(cfg, os.path.dirname(CONFIG),
+                                  device="cuda")
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+    per = {}
+    for name in ("sparse_prep", "sparse_solve", "order_step"):
+        calls, tot = ScopedProfiler.stats(name)
+        per[name] = (calls, tot / calls if calls else float("nan"))
+    ScopedProfiler.enabled = False
+    return res, launches, per, dict(SparseCG.STATS)
+
+
+def phase_cg(torch):
+    """The cg cell: test_cuboid on the PCG solver, cold and warm, against
+    the JAX package's restarts and displacement."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    res, launches, per, pcg = run_cg_cuboid(torch)
+    st = res.stat
+    label = "cg test_cuboid"
+    rel = abs(st["displacement"] - CG_DISPLACEMENT) / CG_DISPLACEMENT
+    say("%s: restarts %d (JAX package on the CPU: %d) solver_resolved=%s "
+        "force_rms_recomp=%.3e (target %.0e; JAX package on the CPU "
+        "8.39e-11) nr_inverted=%d" % (
+            label, st["iter"], CG_RESTARTS, st["solver_resolved"],
+            st["force_rms_recomp"], RMS_TARGET, st["nr_inverted"]))
+    say("%s: displacement %.16g vs the JAX package's %.16g: rel diff %.3e "
+        "(tol 1e-9)" % (label, st["displacement"], CG_DISPLACEMENT, rel))
+    say("%s: time_solve cold=%.3f s warm=%.3f s time_prep=%.3f s" % (
+        label, st["time_solve"], st["time_solve_warm"], st["time_prep"]))
+    say("%s: PCG iterations per solve mean %.1f max %d over %d solves "
+        "(%d run in chunks of 64); factor s/restart=%.4f (%d)  solve "
+        "ms/solve=%.4f (%d)  step ms/order=%.4f (%d)" % (
+            label, pcg["iterations"] / max(pcg["solves"], 1),
+            pcg["max_iterations"], pcg["solves"], pcg["run"],
+            per["sparse_prep"][1], per["sparse_prep"][0],
+            per["sparse_solve"][1] * 1e3, per["sparse_solve"][0],
+            per["order_step"][1] * 1e3, per["order_step"][0]))
+    say("%s: launches %s" % (label, json.dumps(launches)))
+    nv = 20 * 8 * 8
+    require(np.isfinite(res.mesh.vertices).all()
+            and res.mesh.vertices.shape == (nv, 3)
+            and st["mesh_V"] == nv, "bad output mesh")
+    require(st["force_rms_recomp"] <= RMS_TARGET, "not converged")
+    require(st["nr_inverted"] == 0, "inverted elements")
+    require(st["solver_resolved"] == "cg", "cg not taken (%s ran)"
+            % st["solver_resolved"])
+    require(rel <= 1e-9, "test_cuboid displacement on cg differs from the "
+            "JAX package's")
+    for name in ("csr_matvec", "diag_blocks", "pcg_step", "remap_in",
+                 "remap_out", "nhc_step", "jac_asm"):
+        require(launches[name] > 0, "kernel %s was not launched on the cg "
+                "path" % name)
+    phase_done("cg", t0)
+    return launches, st
+
+
+def cg_penalty_parity(torch):
+    """The Tikhonov case ``CG_PENALTY_TASK`` on the card and on the CPU:
+    same restarts, coordinates within ``PARITY_RTOL``, force-RMS <= 1e-9
+    (the JAX package's test), cg in both; returns the card run's launch
+    counts (csr_matvec_t's only main-path launches)."""
+    import numpy as np
+
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.fea import app
+
+    os.environ.pop("SANM_WARM_TIMING", None)
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for dev in ("cuda", "cpu"):
+                kernels.reset_launches()
+                out[dev] = app.test_cuboid(dict(CG_PENALTY_TASK), tmp,
+                                           device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = dict(kernels.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+    s_c, s_p = out["cuda"].solver, out["cpu"].solver
+    x0 = s_p.model.x0()
+    rel = float(np.abs(s_c.get_x() - s_p.get_x()).max()
+                / np.abs(s_p.get_x() - x0).max())
+    rms = max(r.stat["force_rms_recomp"] for r in out.values())
+    say("parity cuboid (12 vertices, neohookean_c, order 8, cg, "
+        "xcoeff_l2_penalty 1e-5): iter card %d / cpu %d, force-RMS <= "
+        "%.3e, coord rel diff %.3e (tol %.0e); card launches csr_matvec_t "
+        "%d pcg_step %d" % (s_c.get_nr_iter(), s_p.get_nr_iter(), rms, rel,
+                            PARITY_RTOL, launches["csr_matvec_t"],
+                            launches["pcg_step"]))
+    require(s_c.get_nr_iter() == s_p.get_nr_iter(),
+            "iterations differ between card and CPU")
+    require(rel <= PARITY_RTOL, "card and CPU solutions differ")
+    require(rms <= 1e-9, "Tikhonov cuboid not converged")
+    require(all(r.stat["solver_resolved"] == "cg" for r in out.values()),
+            "cg not taken")
+    for name in ("csr_matvec_t", "pcg_step", "diag_blocks"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "Tikhonov cg path" % name)
+    return launches
+
+
 def cuboid_body():
     """The parity cuboid (6 x 4 x 4, 225 tets, x = 0 fixed) and its load,
     -200 N on each vertex of the far face."""
@@ -1323,6 +1688,8 @@ def phase_parity():
             require(rel <= PARITY_RTOL, "card and CPU solutions differ")
             require(max(rms_c, rms_p) <= RMS_TARGET, "cuboid not converged")
     launches = baseline_parity(torch)
+    for k, v in cg_penalty_parity(torch).items():
+        launches[k] = launches.get(k, 0) + v
     phase_done("parity", t0)
     return launches
 
@@ -1536,17 +1903,16 @@ def phase_direct(torch, verts_lu, verts_rest):
 
 
 def phase_arap(torch, verts_rest):
-    """The ARAP cell on host LU and on the band solver; a band fallback
-    to host LU is counted, printed with its restart, and accepted when
-    the run converges."""
+    """The ARAP cell on host LU, cold, and on the band solver, cold and
+    warm, then the two equilibria compared; a band fallback to host LU is
+    counted, printed with its restart, and accepted when the run
+    converges."""
     import numpy as np
 
     t0 = time.perf_counter()
     out = {}
     for solver in ("host_lu", "band_chol"):
         label = "arap " + solver
-        # host LU cold only (its warm re-solve left the script for the
-        # NHI phase's time)
         res, launches, per = run_gravity(torch, solver, ARAP_CONFIGS, label,
                                          allow_fallback=solver == "band_chol",
                                          warm=solver == "band_chol")
@@ -1568,9 +1934,16 @@ def phase_arap(torch, verts_rest):
                     "ARAP %s path" % (name, solver))
         require(launches["nhc_step"] == 0 and launches["jac_asm"] == 0,
                 "an NHC kernel ran on the ARAP path")
+        rel = abs(st["displacement"] - ARAP_DISPLACEMENT) / ARAP_DISPLACEMENT
+        say("%s: restarts %d (JAX package on the CPU: %d); displacement "
+            "%.16g vs the JAX package's %.16g: rel diff %.3e (tol 1e-9)"
+            % (label, st["iter"], ARAP_CPU_RESTARTS, st["displacement"],
+               ARAP_DISPLACEMENT, rel))
+        require(rel <= 1e-9, "ARAP displacement differs from the JAX "
+                "package's")
         out[solver] = (res, launches)
-    verts_lu = out["host_lu"][0].mesh.vertices
     verts = out["band_chol"][0].mesh.vertices
+    verts_lu = out["host_lu"][0].mesh.vertices
     disp = float(np.abs(verts_lu - verts_rest).max())
     diff = float(np.abs(verts - verts_lu).max()) / disp
     say("arap: band_chol vs host_lu coordinates: max diff / max "
@@ -1604,16 +1977,18 @@ def band_line(label, res, launches, per, solve_kernel="band_solve"):
     return trips
 
 
-def phase_nhi(torch):
+def phase_nhi(torch, solvers=("band_chol",)):
     """The NHI cell (human as it is) on the band solver, cold and warm,
-    and on host LU, cold; a band fallback to host LU is counted, printed
-    with its restart, and accepted when the run converges.  Returns the
-    band run's result and launch counts and both runs' stats."""
+    and (``solvers`` with ``host_lu``, under ``--records``) on host LU,
+    cold, then the two equilibria compared; a band fallback to host LU is
+    counted, printed with its restart, and accepted when the run
+    converges.  Returns the band run's result and launch counts and the
+    runs' stats."""
     import numpy as np
 
     t0 = time.perf_counter()
     out = {}
-    for solver in ("band_chol", "host_lu"):
+    for solver in solvers:
         label = "nhi " + solver
         res, launches, per = run_gravity(
             torch, solver, HUMAN_CONFIGS, label,
@@ -1644,16 +2019,17 @@ def phase_nhi(torch):
         require(rel <= 1e-9, "NHI displacement differs from the JAX "
                 "package's")
         out[solver] = (res, launches)
-    verts = out["band_chol"][0].mesh.vertices
-    verts_lu = out["host_lu"][0].mesh.vertices
-    model = out["host_lu"][0].solver.model
-    disp = float(np.abs(model.lt_inp.copy_vtx_values(verts_lu)
-                        - model.x0()).max())
-    diff = float(np.abs(verts - verts_lu).max()) / disp
-    say("nhi: band_chol vs host_lu coordinates: max diff / max "
-        "displacement %.3e (tol %.0e)" % (diff, BAND_COORD_RTOL))
-    require(diff <= BAND_COORD_RTOL, "NHI band and host-LU equilibria "
-            "differ")
+    if "host_lu" in out:
+        verts = out["band_chol"][0].mesh.vertices
+        verts_lu = out["host_lu"][0].mesh.vertices
+        model = out["host_lu"][0].solver.model
+        disp = float(np.abs(model.lt_inp.copy_vtx_values(verts_lu)
+                            - model.x0()).max())
+        diff = float(np.abs(verts - verts_lu).max()) / disp
+        say("nhi: band_chol vs host_lu coordinates: max diff / max "
+            "displacement %.3e (tol %.0e)" % (diff, BAND_COORD_RTOL))
+        require(diff <= BAND_COORD_RTOL, "NHI band and host-LU equilibria "
+                "differ")
     phase_done("nhi", t0)
     stats = {s: r.stat for s, (r, _) in out.items()}
     return out["band_chol"][0], out["band_chol"][1], stats
@@ -1827,6 +2203,12 @@ def run_deform(torch, solver, configs=DEFORM_CONFIGS, label=None,
     return res, launches, per
 
 
+#: the deform phase's runs: (solver, material, warm re-run, its kernels)
+DEFORM_LEGS = (("band_chol", "arap", True, ARAP_KERNELS),
+               ("host_lu", "arap", False, ARAP_KERNELS),
+               ("band_chol", "neohookean_c", False, ("nhc_step", "jac_asm")))
+
+
 def phase_deform(torch):
     """The deform cell (armadillo ARAP bend as it is) on the band solver,
     cold and with a warm task re-run, and on host LU, cold; the same bend
@@ -1839,10 +2221,7 @@ def phase_deform(torch):
     stats = {}
     band = ("grad_t", "remap_in", "remap_out", "element_matvec",
             "band_assemble", "band_factor", "band_solve")
-    for solver, em, warm, material in (
-            ("band_chol", "arap", True, ARAP_KERNELS),
-            ("host_lu", "arap", False, ARAP_KERNELS),
-            ("band_chol", "neohookean_c", False, ("nhc_step", "jac_asm"))):
+    for solver, em, warm, material in DEFORM_LEGS:
         label = "deform %s %s" % (em, solver)
         configs = DEFORM_CONFIGS if em == "arap" else DEFORM_NHC_CONFIGS
         res, launches, _ = run_deform(torch, solver, configs, label, warm,
@@ -2069,8 +2448,11 @@ def phase_records(torch):
     (``configs/jet.json``) on band_chol and on host_lu, cold (a fallback
     is counted and printed, and a run passes if it converges), the human
     ARAP bend (``human.json`` + ``human_bend_override.json``) on
-    band_chol, cold, and the refinement trace of :func:`refine_trace` on
-    armadillo-small NHC, human NHI and jet NHI."""
+    band_chol, cold, the refinement trace of :func:`refine_trace` on
+    armadillo-small NHC, human NHI and jet NHI, human NHI on band_chol
+    and host_lu, armadillo-small NHC on cg (:func:`armadillo_cg_record`),
+    the PCG witness (:func:`cg_witness_record`) and the baselines' full
+    size cells."""
     t0 = time.perf_counter()
     stats = {}
     for solver in ("band_chol", "host_lu"):
@@ -2092,11 +2474,84 @@ def phase_records(torch):
                            ("jet NHI", JET_CONFIGS)):
         refine_trace(torch, label, configs)
         torch.cuda.empty_cache()
+    stats["nhi"] = phase_nhi(torch, ("band_chol", "host_lu"))[2]
+    torch.cuda.empty_cache()
+    stats["armadillo cg"] = armadillo_cg_record(torch)
+    torch.cuda.empty_cache()
+    stats["cg witness"] = cg_witness_record(torch)
+    torch.cuda.empty_cache()
     phase_done("records", t0)
     for label, (st, _) in phase_baseline(torch,
                                          BASELINE_RECORD_CELLS).items():
         stats["baseline " + label] = st
     return stats
+
+
+def armadillo_cg_record(torch):
+    """armadillo-small NHC gravity on the PCG solver, cold: the JAX
+    package's cg stops after 2,048 iterations a solve, short of 1e-13 on
+    this Jacobian, and its expansion fails the order checks there
+    (``SANMNumericalError``), which this record expects and reports; any
+    other outcome is printed as it is."""
+    from sanm_tpu_torch.solver.linear import SparseCG
+    from sanm_tpu_torch.utils import SANMNumericalError, ScopedProfiler
+
+    SparseCG.reset_stats()
+    t = time.perf_counter()
+    try:
+        res = run_gravity(torch, "cg", label="armadillo cg", warm=False)[0]
+        out = {"outcome": "converged", "iter": res.stat["iter"],
+               "force_rms_recomp": res.stat["force_rms_recomp"],
+               "displacement": res.stat["displacement"]}
+    except SANMNumericalError as e:
+        out = {"outcome": "SANMNumericalError", "error": str(e)}
+    except Fail as e:
+        out = {"outcome": "failed check", "error": str(e)}
+    ScopedProfiler.enabled = False
+    pcg = dict(SparseCG.STATS)
+    out.update(seconds=time.perf_counter() - t, pcg=pcg)
+    say("armadillo cg (records): %s; PCG iterations per solve mean %.1f max "
+        "%d over %d solves" % (json.dumps({k: v for k, v in out.items()
+                                           if k != "pcg"}),
+                               pcg["iterations"] / max(pcg["solves"], 1),
+                               pcg["max_iterations"], pcg["solves"]))
+    return out
+
+
+def cg_witness_record(torch):
+    """The solve of :func:`cg_rows`, two witnesses: armadillo-small NHC
+    gravity on band_chol, cold, gives the equilibrium; at its Jacobian
+    the 2,048 PCG iterations of the gravity load run by the kernel on the
+    card and by the plain version on the CPU (:func:`pcg_trace`, the same
+    M^-1), printed side by side."""
+    import numpy as np
+
+    from sanm_tpu_torch.solver import assemble as K23
+    from sanm_tpu_torch.solver import linear as K9
+    from sanm_tpu_torch.utils import ScopedProfiler
+
+    res = run_gravity(torch, "band_chol", label="cg witness", warm=False)[0]
+    ScopedProfiler.enabled = False
+    model, f_load = armadillo_model()
+    asm = model.asm
+    gin = K23.remap_in(asm, asm.pad_vector(
+        model.lt_inp.copy_vtx_values(res.mesh.vertices)))
+    data = K23.jac_asm(asm, model.elems, gin)[0]
+    del res, gin
+    b = torch.as_tensor(np.asarray(f_load), dtype=torch.float64).cuda()
+    csr = asm.csr_maps
+    binv = K9.SparseCG(csr, data).binv
+    out = {}
+    for dev, c in (("card, kernel", csr), ("CPU, plain", csr.to("cpu"))):
+        t = time.perf_counter()
+        out[dev] = pcg_trace(torch, c, data.to(c.device), binv.to(c.device),
+                             b.to(c.device))
+        out[dev]["seconds"] = time.perf_counter() - t
+        say("cg witness (records), armadillo-small NHC equilibrium, "
+            "gravity load, %s (%.2f s): relative residual of the recurrence "
+            "/ true and the CG functional after each number of iterations: "
+            "%s" % (dev, out[dev]["seconds"], trace_line(out[dev])))
+    return out
 
 
 def svd_w_check(torch, m):
@@ -2446,6 +2901,7 @@ def main(argv):
     stat_invcheck = phase_invcheck(torch)
     torch.cuda.empty_cache()
     runs_base = phase_baseline(torch)
+    launches_cg, stat_cg = phase_cg(torch)
     timing = Timing(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
@@ -2471,18 +2927,24 @@ def main(argv):
     launches_on = {"hess_proj": BASELINE_CUBOID_ONLY,
                    "hess_proj_nhi": BASELINE_CUBOID_ONLY,
                    "hess_proj_arap": "armadillo-small ARAP bend, projected "
-                                     "Newton baseline, full size"}
+                                     "Newton baseline, full size",
+                   "csr_matvec_t": CG_PENALTY_ONLY}
+    launches_cg["csr_matvec_t"] = launches_parity["csr_matvec_t"]
     kern = []
     for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS
-                 + INV_KERNELS + DIRECT_KERNEL_NAMES + BASELINE_KERNELS):
+                 + INV_KERNELS + DIRECT_KERNEL_NAMES + BASELINE_KERNELS
+                 + CG_KERNELS):
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
         # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t,
         # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i,
         # the NHC dense_chol and spike_band phases for K6 and K7, the
-        # baselines for K10
-        runs = (launches_base if name in BASELINE_KERNELS else
+        # baselines for K10, the test_cuboid cg phase (cold + warm) for K4
+        # COO and K9 (csr_matvec_t: the Tikhonov cuboid of the parity
+        # phase)
+        runs = (launches_cg if name in CG_KERNELS else
+                launches_base if name in BASELINE_KERNELS else
                 launches_arap if name in ARAP_KERNELS else
                 launches_nhi if name in NHI_KERNELS else
                 launches_deform if name in DEFORM_KERNELS else
@@ -2505,7 +2967,7 @@ def main(argv):
                         "spike_band": direct["spike_band"][1],
                         "arap": stats_arap, "nhi": stats_nhi,
                         "deform": stats_deform, "inverse": stats_inv,
-                        "invcheck": stat_invcheck,
+                        "invcheck": stat_invcheck, "cg": stat_cg,
                         "baseline": {k: st for k, (st, _) in
                                      runs_base.items()}})
     faulthandler.cancel_dump_traceback_later()

@@ -217,6 +217,35 @@ int sanm_spike_solve(const double* panels, const int64_t* off,
                      double* red, double* out, int64_t n, int64_t P,
                      int64_t mb, int64_t b, void* stream);
 
+// K4 COO: out[i] = sum over q in ptr[i] .. ptr[i+1] of
+// data[pos ? pos[q] : q] * v[idx[q]], i < n_out: A x with the CSR row
+// pointer, pos NULL and idx the columns; A^T y with the column gather map
+// (pos the value positions, idx their rows).
+int sanm_csr_matvec(const int32_t* ptr, const int32_t* pos,
+                    const int32_t* idx, const double* data, const double* v,
+                    double* out, int64_t n_out, void* stream);
+
+// K4 COO: out[t] = dmap[t] < nnz ? data[dmap[t]] : 0, t < count (the
+// diagonal blocks).
+int sanm_diag_blocks(const int32_t* dmap, const double* data, double* out,
+                     int64_t count, int64_t nnz, void* stream);
+
+// K9: n_steps block-Jacobi PCG iterations on A (row_ptr, cols, data; in
+// Tikhonov mode, pen != 0, on A^T A + pen I with A^T's gather map t_ptr,
+// t_src, t_rows and the scratch y (n)), binv (n/3, 3, 3) = M^-1, the state
+// x, r, z, p (n) in place, the scratch Ap (n) and part (3 G), the scalars
+// S (7): slot c = S[3c .. 3c+2] holds (r.z, r.r, live iterations),
+// iteration it0 + s reads slot (it0 + s) & 1 and writes the other, S[6] =
+// b.b; an iteration is frozen (x, r untouched, alpha = beta = 0) once
+// r.r <= tol2 b.b.  G CTAs per launch.
+int sanm_pcg_step(const int32_t* row_ptr, const int32_t* cols,
+                  const int32_t* t_ptr, const int32_t* t_src,
+                  const int32_t* t_rows, const double* data,
+                  const double* binv, double* x, double* r, double* z,
+                  double* p, double* Ap, double* y, double* S, double* part,
+                  int64_t n, int64_t n_steps, int64_t it0, int64_t G,
+                  double tol2, double pen, void* stream);
+
 const char* sanm_error_string(int err);
 
 }  // extern "C"

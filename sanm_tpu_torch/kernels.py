@@ -48,7 +48,8 @@ LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "inv_nhc_step": 0, "inv_nhi_step": 0, "jac_asm_inv": 0,
             "jac_asm_inv_nhi": 0, "dense_factor": 0, "dense_solve": 0,
             "spike_rhs_solve": 0, "spike_solve": 0, "hess_proj": 0,
-            "hess_proj_nhi": 0, "hess_proj_arap": 0}
+            "hess_proj_nhi": 0, "hess_proj_arap": 0, "csr_matvec": 0,
+            "csr_matvec_t": 0, "diag_blocks": 0, "pcg_step": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -99,6 +100,9 @@ _SIGNATURES = {
     "sanm_hess_proj_nhi": [_P] * 9 + [_I64, _I32, _I32, _I64, _F64, _F64,
                                       _P],
     "sanm_hess_proj_arap": [_P] * 10 + [_I64, _I32, _I32, _I64, _F64, _P],
+    "sanm_csr_matvec": [_P] * 6 + [_I64, _P],
+    "sanm_diag_blocks": [_P, _P, _P, _I64, _I64, _P],
+    "sanm_pcg_step": [_P] * 15 + [_I64] * 4 + [_F64, _F64, _P],
 }
 
 

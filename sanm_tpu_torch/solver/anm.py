@@ -34,6 +34,11 @@ K8b for ARAP, K3i and K1i for the inverse model.
 * ``dense``: the dense A factored by QR (Cholesky of A^T A + lambda I
   with the l2 penalty) in plain torch on A's device, as the JAX package
   calls the library there.
+* ``cg``: block-Jacobi PCG on the card (K9 over K4 COO's CSR products,
+  ``solver/linear.py`` :class:`~sanm_tpu_torch.solver.linear.SparseCG`),
+  built once per restart, Tikhonov mode included.  It is no device
+  factor: an expansion that fails its checks raises, as in the JAX
+  package, and ``auto`` never takes it.
 
 The continuation control (restarts, Pade, convergence) is host Python on
 the (N+1, n+1) coefficient matrix.
@@ -68,13 +73,13 @@ from ..utils import (
 )
 from .assemble import DensePlan, element_matvec, plan_for
 from .band import BandPlan, DeviceBandCholSolver
-from .linear import DenseFactorSolver, DeviceCholSolver, HostSparseLU
+from .linear import (DenseFactorSolver, DeviceCholSolver, HostSparseLU,
+                     SparseCG)
 from .spike import DeviceSpikeBandSolver, SpikePlan
 
-#: the ported linear solvers (``sanm_tpu/solver/anm.py:54-64``; ``cg`` is
-#: not ported yet)
+#: the linear solvers (``sanm_tpu/solver/anm.py:54-64``)
 SOLVERS = ("auto", "host_lu", "band_chol", "dense", "dense_chol",
-           "spike_band")
+           "spike_band", "cg")
 _DEVICE_SOLVERS = {"band_chol": (DeviceBandCholSolver, BandPlan),
                    "dense_chol": (DeviceCholSolver, DensePlan),
                    "spike_band": (DeviceSpikeBandSolver, SpikePlan)}
@@ -97,10 +102,10 @@ class HyperParam:
     ``solver``: ``"host_lu"`` (host SuperLU), ``"band_chol"`` (the card's
     skyline band Cholesky), ``"dense_chol"`` (the card's dense blocked
     Cholesky), ``"spike_band"`` (the card's SPIKE partitioned band),
-    ``"dense"`` (dense QR in plain torch) or ``"auto"``: ``band_chol`` on
-    the card when its factor and working band fit in half of the card's
-    free memory, else ``host_lu`` (see ``_band_auto_ok``); ``auto`` never
-    takes the other three.
+    ``"dense"`` (dense QR in plain torch), ``"cg"`` (block-Jacobi PCG on
+    the card) or ``"auto"``: ``band_chol`` on the card when its factor and
+    working band fit in half of the card's free memory, else ``host_lu``
+    (see ``_band_auto_ok``); ``auto`` never takes the other four.
     ``fact_reuse_rel_step``: reuse the previous restart's factorization
     when the start point moved by less than this relative step (0
     disables)."""
@@ -136,7 +141,7 @@ class _ANMDriverBase:
     def __init__(self, model, n_unknown: int, hyper_param=None):
         self.hp = hyper_param or HyperParam()
         sanm_assert(self.hp.order >= 2, "order=%d", self.hp.order)
-        sanm_assert(self.hp.solver in SOLVERS, "solver %r is not ported",
+        sanm_assert(self.hp.solver in SOLVERS, "unknown solver %r",
                     self.hp.solver)
         if self.hp.solver in DEVICE_FACTORS and not model.symmetric:
             raise SANMError(
@@ -292,7 +297,8 @@ class _ANMDriverBase:
     def _factorize(self, mode, data, E):
         """The solver of one expansion from the CSR values ``data`` and
         the element stiffness ``E``: a device factor (None when it is not
-        finite), the dense QR or host SuperLU (``anm.py:1245-1275``)."""
+        finite), the dense QR, the PCG solver or host SuperLU
+        (``anm.py:1245-1275``)."""
         asm = self.asm
         if mode in DEVICE_FACTORS:
             cls, plan_cls = _DEVICE_SOLVERS[mode]
@@ -306,6 +312,9 @@ class _ANMDriverBase:
             A[torch.as_tensor(asm.csr_rowidx, dtype=torch.long),
               torch.as_tensor(asm.csr_cols, dtype=torch.long)] = data
             return DenseFactorSolver(A, self.hp.xcoeff_l2_penalty)
+        if mode == "cg":
+            return SparseCG(asm.csr_maps, data,
+                            l2_penalty=self.hp.xcoeff_l2_penalty)
         import scipy.sparse as sp
 
         A = sp.csr_matrix((data.cpu().numpy(),
@@ -322,7 +331,7 @@ class _ANMDriverBase:
         one whose first refined solve misses the pre-gate hands it the
         rest of the solve.  With the l2 penalty the device factors (which
         refuse Tikhonov mode) leave the solve to host LU, as in the JAX
-        package; ``dense`` keeps it."""
+        package; ``dense`` and ``cg`` keep it."""
         hp = self.hp
         n = self.n
         asm = self.asm

@@ -22,7 +22,12 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
 * K4 :func:`element_matvec` replaces ``SparseAssembler.element_matvec``
   (``sanm_tpu/solver/remap.py:453-478``): A x from the condensed element
   stiffness E, for the refinement and the sanity residual of the band
-  solve.
+  solve;
+* K4 COO :func:`csr_matvec`, :func:`csr_matvec_t` and :func:`diag_blocks`
+  replace ``SparseAssembler.matvec`` / ``matvec_t`` / ``diag_blocks``
+  (``:423-451``): A x and A^T y from the CSR values, and the 3 x 3
+  diagonal blocks, for the PCG solver (``cg``, ``solver/linear.py``) on
+  the maps of :class:`CSRMaps`.
 
 K5a's scaled, sign-flipped scatter (:func:`scaled_scatter`, launched
 as ``band_assemble``) serves the three Cholesky solvers: the band
@@ -31,15 +36,16 @@ as ``band_assemble``) serves the three Cholesky solvers: the band
 partitions (``solver/spike.py``).
 
 The scatter-adds (``apply_out``, the CSR assembly, grad_t,
-``element_matvec``) are summed in gather form from host-built inverse
-maps, in a fixed order and without atomics (``csrc/remap.cu``,
-``csrc/jac_asm.cu``).  Each wrapper launches its kernel for tensors on
-the card, runs its ``*_plain`` torch version for tensors on the CPU, and
-raises for anything else.
+``element_matvec``, A^T y) are summed in gather form from host-built
+inverse maps, in a fixed order and without atomics (``csrc/remap.cu``,
+``csrc/jac_asm.cu``, ``csrc/cg.cu``).  Each wrapper launches its kernel
+for tensors on the card, runs its ``*_plain`` torch version for tensors
+on the CPU, and raises for anything else.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
@@ -49,7 +55,7 @@ from .. import kernels
 from ..ops.elements import Elements, InvElements
 from ..ops.svd_w import svd_w_jvp
 from ..utils import SANMError
-from .remap import diag_nnz_pos, gather_map
+from .remap import csr_row_ptr, diag_block_map, diag_nnz_pos, gather_map
 
 _f64 = torch.float64
 _i32 = torch.int32
@@ -107,6 +113,13 @@ class DeviceAssembler:
     def _dev(self, a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype).contiguous()
+
+    @functools.cached_property
+    def csr_maps(self) -> "CSRMaps":
+        """The maps of the CSR products on this device, built at first use
+        (only the ``cg`` solver reads them)."""
+        return CSRMaps(self.csr_rowidx, self.csr_cols, self.n_rows, self.n,
+                       self.device)
 
     @classmethod
     def from_plan(cls, plan, device, jacobian=True):
@@ -794,3 +807,114 @@ def dense_assemble(plan: DensePlan, data):
 def dense_assemble_plain(plan: DensePlan, data):
     flat, scale = scaled_scatter_plain(*_dense_scatter_args(plan, data))
     return flat.view(plan.npad, plan.npad), scale
+
+
+# ---------------------------------------------------------------------------
+# K4 COO: csr_matvec, csr_matvec_t, diag_blocks
+# ---------------------------------------------------------------------------
+
+
+class CSRMaps:
+    """The CSR values' maps on one device: the row pointer ``row_ptr``
+    (n_rows+1,) and ``cols`` (nnz,) of A x; at first use the gather form
+    of A^T y (``t_ptr`` (n+1,), ``t_src`` (nnz,): per column its value
+    positions in ascending order, ``t_rows`` = their rows), the COO rows
+    ``rowidx`` of the plain versions and the diagonal-block map ``dmap``
+    (n/3, 3, 3) with dump value nnz.  The rows must be sorted (the CSR of
+    the assembler plan is)."""
+
+    def __init__(self, csr_rowidx, csr_cols, n_rows, n, device):
+        self.n_rows, self.n = int(n_rows), int(n)
+        self.device = torch.device(device)
+        self._rowidx = np.ascontiguousarray(csr_rowidx, np.int32)
+        self._cols = np.ascontiguousarray(csr_cols, np.int32)
+        self.nnz = len(self._rowidx)
+        self.row_ptr = self._dev(csr_row_ptr(self._rowidx, self.n_rows))
+        self.cols = self._dev(self._cols)
+
+    def _dev(self, a):
+        return torch.as_tensor(a).to(device=self.device,
+                                     dtype=_i32).contiguous()
+
+    def to(self, device):
+        """The same maps on ``device``."""
+        return CSRMaps(self._rowidx, self._cols, self.n_rows, self.n, device)
+
+    @functools.cached_property
+    def rowidx(self):
+        return self._dev(self._rowidx)
+
+    @functools.cached_property
+    def transposed(self):
+        """``(t_ptr, t_src, t_rows)``: the gather form of A^T y."""
+        ptr, src = gather_map(self._cols, self.n)
+        return self._dev(ptr), self._dev(src), self._dev(self._rowidx[src])
+
+    @functools.cached_property
+    def dmap(self):
+        return self._dev(diag_block_map(self._rowidx, self._cols, self.n,
+                                        self.nnz, 3))
+
+
+def _csr_launch(counter, ptr, pos, idx, data, v, out):
+    kernels.launch(counter, "sanm_csr_matvec", ptr.data_ptr(),
+                   None if pos is None else pos.data_ptr(), idx.data_ptr(),
+                   data.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   out.numel())
+    return out
+
+
+def csr_matvec(csr: CSRMaps, data, x):
+    """A x (n_rows,) from the CSR values ``data`` (nnz,) for ``x`` (n,):
+    one warp per row over its contiguous values."""
+    kernels.check(data, "data", (csr.nnz,), _f64)
+    kernels.check(x, "x", (csr.n,), _f64)
+    if not kernels.on_card(data, x, csr.row_ptr, csr.cols):
+        return csr_matvec_plain(csr, data, x)
+    out = torch.empty((csr.n_rows,), dtype=_f64, device=x.device)
+    return _csr_launch("csr_matvec", csr.row_ptr, None, csr.cols, data, x,
+                       out)
+
+
+def csr_matvec_plain(csr: CSRMaps, data, x):
+    """``matvec``'s scatter-add (``remap.py:439-444``)."""
+    acc = torch.zeros(csr.n_rows, dtype=_f64, device=x.device)
+    return acc.index_add_(0, csr.rowidx.long(), data * x[csr.cols.long()])
+
+
+def csr_matvec_t(csr: CSRMaps, data, y):
+    """A^T y (n,) for ``y`` (n_rows,): one warp per column over its value
+    positions in ascending order (the gather form of ``matvec_t``)."""
+    kernels.check(data, "data", (csr.nnz,), _f64)
+    kernels.check(y, "y", (csr.n_rows,), _f64)
+    t_ptr, t_src, t_rows = csr.transposed
+    if not kernels.on_card(data, y, t_ptr, t_src, t_rows):
+        return csr_matvec_t_plain(csr, data, y)
+    out = torch.empty((csr.n,), dtype=_f64, device=y.device)
+    return _csr_launch("csr_matvec_t", t_ptr, t_src, t_rows, data, y, out)
+
+
+def csr_matvec_t_plain(csr: CSRMaps, data, y):
+    """``matvec_t``'s scatter-add (``remap.py:446-451``)."""
+    acc = torch.zeros(csr.n, dtype=_f64, device=y.device)
+    return acc.index_add_(0, csr.cols.long(), data * y[csr.rowidx.long()])
+
+
+def diag_blocks(csr: CSRMaps, data):
+    """The (n/3, 3, 3) diagonal blocks of A from its CSR values (zero
+    where A has no value)."""
+    kernels.check(data, "data", (csr.nnz,), _f64)
+    dmap = csr.dmap
+    if not kernels.on_card(data, dmap):
+        return diag_blocks_plain(csr, data)
+    out = torch.empty(dmap.shape, dtype=_f64, device=data.device)
+    kernels.launch("diag_blocks", "sanm_diag_blocks", dmap.data_ptr(),
+                   data.data_ptr(), out.data_ptr(), dmap.numel(), csr.nnz)
+    return out
+
+
+def diag_blocks_plain(csr: CSRMaps, data):
+    """``diag_blocks`` (``remap.py:423-437``): the values padded with one
+    zero, gathered by the map."""
+    padded = torch.cat([data, data.new_zeros(1)])
+    return padded[csr.dmap.long()]

@@ -21,6 +21,11 @@ factor solve.
 * :class:`DenseFactorSolver` (``:98-207``), the ``dense`` solver: plain
   torch QR, or Cholesky of ``A^T A + lambda I`` in Tikhonov mode, as the
   JAX package calls the library there.
+* K9, the ``cg`` solver (:class:`SparseCG`, ``:636-752``): block-Jacobi
+  PCG on the CSR values, in chunks of iterations that run on the card
+  without a host synchronisation (:func:`pcg_chunk`, ``csrc/cg.cu``) and
+  one scalar read between chunks; its products are K4 COO
+  (``solver/assemble.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ import torch
 
 from .. import kernels
 from ..utils import SANMError, ScopedProfiler
-from .assemble import DensePlan, dense_assemble
+from .assemble import (CSRMaps, DensePlan, csr_matvec, csr_matvec_plain,
+                       csr_matvec_t, csr_matvec_t_plain, dense_assemble,
+                       diag_blocks)
 
 _f64 = torch.float64
 
@@ -364,3 +371,178 @@ class DenseFactorSolver:
 
     def apply(self, x):
         return self.A @ x.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# K9 pcg_chunk: the block-Jacobi PCG iterations of the cg solver
+# ---------------------------------------------------------------------------
+
+#: CTAs of each K9 launch, and so the partial sums of each dot product
+PCG_CTAS = 528
+
+
+class PCGState:
+    """One PCG solve's state on b's device: x, r, z, p (n,), the scratch
+    Ap, y (n,) and ``part`` (3, :data:`PCG_CTAS`), and the scalars ``S``
+    (7,): slot c (``S[3c:3c+3]``) holds r.z, r.r and the count of live
+    iterations, iteration ``it`` reads slot ``it & 1`` and writes the
+    other; ``S[6]`` is b.b.  It starts as ``sanm_tpu/solver/linear.py
+    :731-739`` does: x = 0, r = b, z = p = M^-1 b."""
+
+    def __init__(self, b, binv):
+        n = b.numel()
+        self.it = 0
+        self.x = torch.zeros_like(b)
+        self.r = b.clone()
+        self.z = precond(binv, b)
+        self.p = self.z.clone()
+        self.Ap = torch.empty_like(b)
+        self.y = torch.empty_like(b)
+        self.part = torch.empty((3, PCG_CTAS), dtype=_f64, device=b.device)
+        zero = b.new_zeros(())
+        bb = b @ b
+        self.S = torch.stack([b @ self.z, bb, zero, zero, zero, zero,
+                              bb]).contiguous()
+        self.n = n
+
+    def slot(self):
+        """The scalars after the last iteration (r.z, r.r, live count)."""
+        c = self.it & 1
+        return self.S[3 * c: 3 * c + 3]
+
+    def clone(self, device=None):
+        """A copy, on ``device`` (default: where the state lies)."""
+        out = PCGState.__new__(PCGState)
+        out.__dict__.update({
+            k: v.to(device or v.device, copy=True) if torch.is_tensor(v)
+            else v for k, v in self.__dict__.items()})
+        return out
+
+
+def precond(binv, v):
+    """M^-1 v per 3-block (``linear.py:663-668``)."""
+    nb = binv.shape[0]
+    return (binv @ v.reshape(nb, 3, 1)).reshape(-1)
+
+
+def pcg_chunk(csr: CSRMaps, data, binv, st: PCGState, n_steps, tol,
+              pen=0.0):
+    """``n_steps`` PCG iterations of ``st`` in place, with the freeze
+    guard of ``linear.py:700-716``; with ``pen`` on A^T A + pen I.  One
+    launch of the K9 entry point, which launches three kernels (four in
+    Tikhonov mode) per iteration and does not synchronise."""
+    n = st.n
+    kernels.check(data, "data", (csr.nnz,), _f64)
+    kernels.check(binv, "binv", (n // 3, 3, 3), _f64)
+    for name in ("x", "r", "z", "p", "Ap", "y"):
+        kernels.check(getattr(st, name), name, (csr.n,), _f64)
+    kernels.check(st.S, "S", (7,), _f64)
+    kernels.check(st.part, "part", (3, PCG_CTAS), _f64)
+    if csr.n != csr.n_rows or n % 3:
+        raise SANMError("PCG needs a square system of 3-blocks, not %d x %d"
+                        % (csr.n_rows, csr.n))
+    t = csr.transposed if pen else ()
+    if not kernels.on_card(data, binv, st.x, st.r, st.z, st.p, st.Ap, st.y,
+                           st.S, st.part, csr.row_ptr, csr.cols, *t):
+        return pcg_chunk_plain(csr, data, binv, st, n_steps, tol, pen)
+    t = t or (None, None, None)
+    kernels.launch("pcg_step", "sanm_pcg_step", csr.row_ptr.data_ptr(),
+                   csr.cols.data_ptr(),
+                   *(None if a is None else a.data_ptr() for a in t),
+                   data.data_ptr(), binv.data_ptr(), st.x.data_ptr(),
+                   st.r.data_ptr(), st.z.data_ptr(), st.p.data_ptr(),
+                   st.Ap.data_ptr(), st.y.data_ptr(), st.S.data_ptr(),
+                   st.part.data_ptr(), n, n_steps, st.it, PCG_CTAS,
+                   tol * tol, float(pen))
+    st.it += n_steps
+    return st
+
+
+def pcg_chunk_plain(csr: CSRMaps, data, binv, st: PCGState, n_steps, tol,
+                    pen=0.0):
+    """``_chunk_kernel``'s body (``linear.py:689-718``) in torch on the
+    state's scalars, with no host synchronisation."""
+    x, r, p, S = st.x, st.r, st.p, st.S
+    tol2 = tol * tol
+    for _ in range(n_steps):
+        c, nx = st.it & 1, 1 - (st.it & 1)
+        rz, rr, count, bb = S[3 * c], S[3 * c + 1], S[3 * c + 2], S[6]
+        live = rr > tol2 * bb
+        Ap = csr_matvec_plain(csr, data, p)
+        if pen:
+            Ap = csr_matvec_t_plain(csr, data, Ap) + pen * p
+        pap = p @ Ap
+        alpha = torch.where(live, rz / torch.where(pap != 0, pap, 1.0), 0.0)
+        x.copy_(torch.where(live, x + alpha * p, x))
+        r.copy_(torch.where(live, r - alpha * Ap, r))
+        st.z.copy_(precond(binv, r))
+        rz2, rr2 = r @ st.z, r @ r
+        beta = torch.where(live, rz2 / torch.where(rz != 0, rz, 1.0), 0.0)
+        p.copy_(st.z + beta * p)
+        S[3 * nx: 3 * nx + 3] = torch.stack([rz2, rr2, count + live])
+        st.it += 1
+    return st
+
+
+class SparseCG:
+    """The ``cg`` solver (``sanm_tpu/solver/linear.py:636-752``):
+    block-Jacobi PCG on the CSR operator (A, or A^T A + pen I with the l2
+    penalty, whose right-hand side becomes A^T b), the preconditioner
+    inv(blocks + 1e-300 I) of A's own 3 x 3 diagonal blocks built once.
+    ``solve`` runs chunks of :attr:`CHUNK` iterations while fewer than
+    :attr:`MAX_ITER` ran and reads ||r|| after each; it stops once ||r||
+    <= :attr:`TOL` ||b|| (the JAX package's defaults, ``:641``).  The
+    class counters ``STATS`` add up the solves, the live (not frozen)
+    iterations and the iterations run."""
+
+    TOL = 1e-13
+    MAX_ITER = 2000
+    CHUNK = 64
+    STATS = {"solves": 0, "iterations": 0, "max_iterations": 0, "run": 0}
+
+    def __init__(self, csr: CSRMaps, data, l2_penalty: float = 0.0):
+        if csr.n != csr.n_rows or csr.n % 3:
+            raise SANMError("PCG needs a square system of 3-blocks, not "
+                            "%d x %d" % (csr.n_rows, csr.n))
+        self.csr = csr
+        self._data = data
+        self.l2_penalty = float(l2_penalty)
+        blocks = diag_blocks(csr, data)
+        self.binv = torch.linalg.inv(
+            blocks + 1e-300 * torch.eye(3, dtype=_f64,
+                                        device=data.device)).contiguous()
+
+    @classmethod
+    def reset_stats(cls):
+        for k in cls.STATS:
+            cls.STATS[k] = 0
+
+    def solve(self, b):
+        with ScopedProfiler("sparse_solve", block=True):
+            b = b.reshape(-1).to(_f64).contiguous()
+            if self.l2_penalty:
+                b = csr_matvec_t(self.csr, self._data, b)
+            bnorm = float(torch.linalg.vector_norm(b))
+            if bnorm == 0.0:
+                return torch.zeros_like(b)
+            st = PCGState(b, self.binv)
+            done = 0
+            while done < self.MAX_ITER:
+                pcg_chunk(self.csr, self._data, self.binv, st, self.CHUNK,
+                          self.TOL, self.l2_penalty)
+                done += self.CHUNK
+                _, rr, live = st.slot().tolist()
+                if np.sqrt(rr) <= self.TOL * bnorm:
+                    break
+        stats = SparseCG.STATS
+        stats["solves"] += 1
+        stats["iterations"] += int(live)
+        stats["max_iterations"] = max(stats["max_iterations"], int(live))
+        stats["run"] += done
+        return st.x
+
+    def apply(self, x):
+        return csr_matvec(self.csr, self._data, x.reshape(-1))
+
+    def coeff_l2(self):
+        return torch.sqrt(torch.sum(self._data * self._data))

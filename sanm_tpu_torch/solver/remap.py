@@ -4,10 +4,11 @@ Port of the host (NumPy) half of ``sanm_tpu/solver/remap.py``:
 :class:`LinearRemap` (``:24-155``), ``_row_unique`` (``:157``) and the
 plan built by ``SparseAssembler.__init__`` (``:207-289``), the t column
 of the implicit continuation included.  On top of that,
-:func:`gather_map` inverts the three scatter-adds (``apply_out``, the
-CSR values and the t column) so that the device kernels sum them in
+:func:`gather_map` inverts the scatter-adds (``apply_out``, the CSR
+values, the t column and A^T y) so that the device kernels sum them in
 gather form, in a fixed order and without atomics (see
-``solver/assemble.py``).
+``solver/assemble.py``); :func:`csr_row_ptr` and :func:`diag_block_map`
+are the maps of the CSR products and the block-Jacobi preconditioner.
 """
 
 from __future__ import annotations
@@ -217,3 +218,31 @@ def diag_nnz_pos(csr_rowidx, csr_cols):
     rowidx = np.asarray(csr_rowidx)
     sel = np.nonzero(rowidx == np.asarray(csr_cols))[0]
     return sel.astype(np.int32), rowidx[sel].astype(np.int32)
+
+
+def csr_row_ptr(csr_rowidx, n_rows):
+    """The (n_rows+1,) int32 row pointer of row-sorted COO rows: row r's
+    values are positions ``ptr[r] : ptr[r+1]``.  Raises unless the rows
+    are sorted (the CSR of :func:`csr_plan` is, by construction)."""
+    rowidx = np.asarray(csr_rowidx).reshape(-1)
+    sanm_assert(not (np.diff(rowidx) < 0).any(), "CSR rows are not sorted")
+    counts = np.bincount(rowidx, minlength=n_rows)
+    sanm_assert(len(counts) == n_rows, "CSR row index out of range")
+    ptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    sanm_assert(ptr[-1] < 2 ** 31, "CSR too large for int32")
+    return ptr.astype(np.int32)
+
+
+def diag_block_map(csr_rowidx, csr_cols, n, nnz, block):
+    """The (n/block, block, block) int32 value positions of the diagonal
+    blocks, dump value ``nnz`` where a block has no value, built as
+    ``sanm_tpu/solver/remap.py:423-437`` builds it."""
+    nb = n // block
+    r = np.asarray(csr_rowidx).astype(np.int64)
+    c = np.asarray(csr_cols).astype(np.int64)
+    sel = (r // block == c // block) & (r < n)
+    dmap = np.full((nb, block, block), nnz, np.int32)
+    dmap[r[sel] // block, r[sel] % block, c[sel] % block] = (
+        np.nonzero(sel)[0].astype(np.int32))
+    return dmap

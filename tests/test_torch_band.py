@@ -389,10 +389,10 @@ def test_band_solver_refuses_penalty_and_unported_solvers():
     with pytest.raises(SANMError):
         pband.DeviceBandCholSolver(plan, torch.as_tensor(vals), None,
                                    l2_penalty=1e-3)
-    for name in ("band_chol", "dense", "dense_chol", "spike_band"):
+    for name in ("band_chol", "dense", "dense_chol", "spike_band", "cg"):
         assert setup_solver_param({"solver": name}).solver == name
-    with pytest.raises(SANMError, match="not ported yet"):
-        setup_solver_param({"solver": "cg"})
+    with pytest.raises(SANMError, match="unknown solver"):
+        setup_solver_param({"solver": "pardiso"})
 
 
 def test_gravity_cli_band_chol(tmp_path, monkeypatch):

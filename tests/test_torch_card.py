@@ -596,3 +596,49 @@ def test_hess_proj(hess_model):
         bad[bad[:, 0] > 0.1, 0] = 0.0  # the far layers past x = 0: J < 0
         _, E = g.hess_proj(asm.apply_in(bad[free]))
         assert not bool(torch.isfinite(E).all())
+
+
+# K4 COO and K9 (the cg solver) against their plain versions on the
+# 225-tet cuboid's Jacobian at a displaced state.  Tolerances (relative to
+# the largest magnitude): the products 1e-13 (f64 sums of the same
+# products in another order); diag_blocks equal (a gather); one PCG
+# iteration 1e-12; a whole solve's x 1e-10 (both stop at a 1e-13
+# residual; the iterates in between are not compared: CG carries each
+# iteration's rounding into every later direction, and on this displaced
+# state a perturbation of b in its last bits moves the 64th iterate
+# visibly).
+CG_TOL = {"products": 1e-13, "step": 1e-12, "solve": 1e-10}
+
+
+def test_cg_kernels(models):
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+    from sanm_tpu_torch.solver import linear as L
+
+    g, c = models["cuda"], models["cpu"]
+    x = g.x0() + np.random.default_rng(8).uniform(-2e-3, 2e-3, g.asm.n)
+    data_g, _, _ = K.jac_asm(g.asm, g.elems, g.asm.apply_in(x))
+    data_c = data_g.cpu()
+    csr_g, csr_c = g.asm.csr_maps, c.asm.csr_maps
+    v = torch.as_tensor(np.random.default_rng(9).standard_normal(g.asm.n))
+    n0 = dict(kernels.LAUNCHES)
+    for fn, plain in ((K.csr_matvec, K.csr_matvec_plain),
+                      (K.csr_matvec_t, K.csr_matvec_t_plain)):
+        got = fn(csr_g, data_g, v.cuda())
+        assert rel(got, plain(csr_c, data_c, v)) <= CG_TOL["products"]
+    blocks = K.diag_blocks(csr_g, data_g)
+    assert torch.equal(blocks.cpu(), K.diag_blocks_plain(csr_c, data_c))
+    cg = L.SparseCG(csr_g, data_g)
+    tol = L.SparseCG.TOL
+    st = L.PCGState(v.cuda(), cg.binv)
+    sp = L.PCGState(v, cg.binv.cpu())
+    L.pcg_chunk(csr_g, data_g, cg.binv, st, 1, tol)
+    L.pcg_chunk_plain(csr_c, data_c, cg.binv.cpu(), sp, 1, tol)
+    for name in ("x", "r", "z", "p", "S"):
+        assert rel(getattr(st, name), getattr(sp, name)) <= CG_TOL["step"]
+    got = cg.solve(v.cuda())
+    want = L.SparseCG(csr_c, data_c).solve(v)
+    assert rel(got, want) <= CG_TOL["solve"]
+    torch.cuda.synchronize()
+    for name in ("csr_matvec", "csr_matvec_t", "diag_blocks", "pcg_step"):
+        assert kernels.LAUNCHES[name] > n0[name], name

@@ -322,8 +322,8 @@ def test_device_factors_refuse_inverse_and_penalty(solver):
 
 def test_gravity_cli_solver_from_env(tmp_path):
     """``SANM_SOLVER`` selects the solver over the config's, as in the
-    JAX package (``sanm_tpu/fea/app.py:94-96``); an unported value
-    (``cg``) still raises."""
+    JAX package (``sanm_tpu/fea/app.py:94-96``): ``dense_chol`` and
+    ``cg`` run; an unknown value still raises."""
     from test_torch_slice import write_tiny_gravity
 
     write_tiny_gravity(tmp_path)
@@ -341,5 +341,13 @@ def test_gravity_cli_solver_from_env(tmp_path):
     assert port["force_rms_recomp"] <= RMS
     res = subprocess.run(cmd, cwd=tmp_path, env=dict(env, SANM_SOLVER="cg"),
                          capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    port = json.loads((tmp_path / "tiny-i0-neohookean_c.json").read_text())
+    assert port["solver_backend"] == "cg"
+    assert port["expansions"] == {"cg": port["iter"], "host_lu": 0}
+    assert port["force_rms_recomp"] <= RMS
+    res = subprocess.run(cmd, cwd=tmp_path,
+                         env=dict(env, SANM_SOLVER="pardiso"),
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
-    assert "not ported yet" in res.stdout + res.stderr
+    assert "unknown solver" in res.stdout + res.stderr

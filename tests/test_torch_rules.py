@@ -539,6 +539,117 @@ def test_direct_wrappers_do_not_fall_back():
     assert kernels.LAUNCHES == before
 
 
+def test_cg_wrappers_do_not_fall_back():
+    """K4 COO (csr_matvec, csr_matvec_t, diag_blocks) and K9 (pcg_chunk)
+    raise on a meta tensor, a wrong dtype or shape and a tensor that is
+    not contiguous; on CPU tensors they run their plain versions and
+    count no launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.solver import assemble, linear
+    from torch_helper import coo_of, random_sparse_spd
+
+    rows, cols, vals = coo_of(random_sparse_spd(
+        300, 15, np.random.default_rng(2)))
+    csr = assemble.CSRMaps(rows, cols, 300, 300, "cpu")
+    data = torch.as_tensor(vals)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(300))
+    before = dict(kernels.LAUNCHES)
+    for fn in (assemble.csr_matvec, assemble.csr_matvec_t):
+        with pytest.raises(SANMError):
+            fn(csr, data.to("meta"), x.to("meta"))
+        with pytest.raises(SANMError):
+            fn(csr, data.float(), x)
+        with pytest.raises(SANMError):
+            fn(csr, data, x[:-1])
+        with pytest.raises(SANMError):
+            fn(csr, data, torch.stack([x, x], 1)[:, 0])
+        fn(csr, data, x)
+    with pytest.raises(SANMError):
+        assemble.diag_blocks(csr, data.to("meta"))
+    with pytest.raises(SANMError):
+        assemble.diag_blocks(csr, data[:-1])
+    blocks = assemble.diag_blocks(csr, data)
+    assert blocks.shape == (100, 3, 3)
+    cg = linear.SparseCG(csr, data)
+    tol = linear.SparseCG.TOL
+    st = linear.PCGState(x, cg.binv)
+    with pytest.raises(SANMError):
+        linear.pcg_chunk(csr, data.to("meta"), cg.binv.to("meta"), st, 1,
+                         tol)
+    with pytest.raises(SANMError):
+        linear.pcg_chunk(csr, data, cg.binv.float(), st, 1, tol)
+    with pytest.raises(SANMError):
+        linear.pcg_chunk(csr, data, cg.binv[:-1], st, 1, tol)
+    with pytest.raises(SANMError):
+        linear.pcg_chunk(csr, data, cg.binv.transpose(1, 2), st, 1, tol)
+    bad = st.clone()
+    bad.p = torch.stack([st.p, st.p], 1)[:, 0]
+    with pytest.raises(SANMError):
+        linear.pcg_chunk(csr, data, cg.binv, bad, 1, tol)
+    linear.pcg_chunk(csr, data, cg.binv, st, 2, tol)
+    assert st.it == 2
+    cg.solve(x)
+    assert kernels.LAUNCHES == before
+
+
+def test_cg_wrappers_refuse_mixed_devices():
+    """Every tensor whose address K4 COO or K9 would hand to the card is
+    checked for its device: a PCG state, a transposed map or a block map
+    with one tensor elsewhere raises instead of running."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.solver import assemble, linear
+    from torch_helper import coo_of, random_sparse_spd
+
+    rows, cols, vals = coo_of(random_sparse_spd(
+        60, 15, np.random.default_rng(4)))
+    data = torch.as_tensor(vals)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(60))
+    before = dict(kernels.LAUNCHES)
+    csr = assemble.CSRMaps(rows, cols, 60, 60, "cpu")
+    cg = linear.SparseCG(csr, data)
+    tol = linear.SparseCG.TOL
+    st = linear.PCGState(x, cg.binv)
+    for name in ("x", "r", "z", "p", "Ap", "y", "S", "part"):
+        bad = st.clone()
+        setattr(bad, name, getattr(st, name).to("meta"))
+        with pytest.raises(SANMError):
+            linear.pcg_chunk(csr, data, cg.binv, bad, 1, tol)
+    for name in ("transposed", "dmap"):
+        odd = assemble.CSRMaps(rows, cols, 60, 60, "cpu")
+        maps = getattr(odd, name)
+        odd.__dict__[name] = (tuple(m.to("meta") for m in maps)
+                              if name == "transposed" else maps.to("meta"))
+        with pytest.raises(SANMError):
+            if name == "dmap":
+                assemble.diag_blocks(odd, data)
+            else:
+                assemble.csr_matvec_t(odd, data, x)
+        if name == "transposed":
+            with pytest.raises(SANMError):
+                linear.pcg_chunk(odd, data, cg.binv, st.clone(), 1, tol,
+                                 pen=1e-3)
+    assert st.it == 0
+    assert kernels.LAUNCHES == before
+
+
+def test_cg_modules_import_without_jax():
+    """The modules of the cg path import in a fresh interpreter without
+    JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import sanm_tpu_torch.solver.linear as L\n"
+        "import sanm_tpu_torch.solver.assemble as A\n"
+        "import sanm_tpu_torch.solver.anm as N\n"
+        "import sanm_tpu_torch.fea.app as P\n"
+        "assert 'cg' in N.SOLVERS and L.SparseCG and A.CSRMaps\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sanm_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _c_entry_points(text, extern_only):
     """``{name: number of parameters}`` of the ``int sanm_*(...)``
     functions declared or defined in C source ``text``."""
