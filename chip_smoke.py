@@ -347,6 +347,9 @@ RMS_TARGET = 1e-10
 # at force-RMS <= 1e-10, about 1e-6 of the ~1.6e-4 N gravity load of a
 # vertex
 BAND_COORD_RTOL = 1e-6
+# K5c's dynamic shared memory per CTA (sub_smem_bytes of csrc/band.cu): the
+# 128 x 128 inverse, two vectors of 128 and 512 partial sums, f64
+K5C_SMEM_BYTES = (128 * 128 + 2 * 128 + 512) * 8
 KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
            "band_assemble", "band_factor", "band_solve")
 ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
@@ -469,6 +472,10 @@ class Timing:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+        # read by a flush that leaves L2 clean (never written, so no line
+        # of it is dirty): the timed kernel then pays no write-back of the
+        # flush's lines, which zero_() leaves dirty
+        self.clean = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(self.COVER_CYCLES)
@@ -480,7 +487,8 @@ class Timing:
         self.host_ms = 0.0
         gc.collect()  # the large host objects of the solves before
 
-    def ms(self, fn, reps=10, warmup=2, setup=None, cover_cycles=None):
+    def ms(self, fn, reps=10, warmup=2, setup=None, cover_cycles=None,
+           read_flush=False):
         torch = self.torch
         for _ in range(warmup):
             if setup is not None:
@@ -491,18 +499,21 @@ class Timing:
         # a garbage collection would land in a timed call's host work
         gc.disable()
         try:
-            total = self._timed(fn, reps, setup, cover_cycles)
+            total = self._timed(fn, reps, setup, cover_cycles, read_flush)
         finally:
             gc.enable()
         return total / reps
 
-    def _timed(self, fn, reps, setup, cover_cycles):
+    def _timed(self, fn, reps, setup, cover_cycles, read_flush=False):
         torch = self.torch
         total = 0.0
         for _ in range(reps):
             if setup is not None:
                 setup()
-            self.flush.zero_()
+            if read_flush:
+                self.clean.sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(cover_cycles or self.COVER_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -521,14 +532,16 @@ class Timing:
     #: measured again, and every reading kept was covered by the spin
     TRIES = 3
 
-    def kernel_ms(self, fn, reps=10, warmup=2, cover_cycles=None):
+    def kernel_ms(self, fn, reps=10, warmup=2, cover_cycles=None,
+                  read_flush=False):
         """Device time of a kernel wrapper; fails if its host work was not
         hidden behind the spin (of ``cover_cycles``, default
         ``COVER_CYCLES``) in ``TRIES`` measurements."""
         cover = self.cover_ms * (cover_cycles or self.COVER_CYCLES) \
             / self.COVER_CYCLES
         for _ in range(self.TRIES):
-            t = self.ms(fn, reps, warmup, cover_cycles=cover_cycles)
+            t = self.ms(fn, reps, warmup, cover_cycles=cover_cycles,
+                        read_flush=read_flush)
             if self.host_ms < cover:
                 return t
             say("timing: host work of a timed launch (%.3f ms) not covered "
@@ -538,11 +551,12 @@ class Timing:
                 "by the spin (%.3f ms) in %d measurements"
                 % (self.host_ms, cover, self.TRIES))
 
-    def graph_ms(self, fn, reps=10, setup=None):
-        """Device time of a wrapper that launches many kernels (the band
-        factor and solve loop over the block columns on the host):
-        captured once in a CUDA graph and replayed, so that its launches
-        run back to back, without the host's launch gaps."""
+    def graph_ms(self, fn, reps=10, setup=None, read_flush=False):
+        """Device time of a wrapper that launches several kernels (the
+        band factor loops over the block columns on the host; the band
+        solve launches a memset and two kernels): captured once in a CUDA
+        graph and replayed, so that its launches run back to back, without
+        the host's launch gaps."""
         torch = self.torch
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -558,7 +572,7 @@ class Timing:
         with torch.cuda.graph(graph, capture_error_mode="relaxed"):
             fn()
         torch.cuda.synchronize()
-        t = self.ms(graph.replay, reps, 1, setup)
+        t = self.ms(graph.replay, reps, 1, setup, read_flush=read_flush)
         require(self.host_ms < self.cover_ms,
                 "host work of a graph replay (%.3f ms) not covered by the "
                 "spin (%.3f ms)" % (self.host_ms, self.cover_ms))
@@ -732,6 +746,25 @@ def phase_build():
             say("  ptxas:", line.strip())
     phase_done("build", t0)
     return info["seconds"]
+
+
+def ptxas_usage(kernel):
+    """ptxas's registers, shared memory and spills for the entry
+    functions whose (mangled) name contains ``kernel``, from the build's
+    ``-Xptxas -v`` report."""
+    from sanm_tpu_torch import kernels
+
+    out, cur, spill = [], None, ""
+    for line in kernels.BUILD_INFO.get("report", "").splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "'" in line else None
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and cur \
+                and kernel in cur:
+            out.append("%s; %s" % (line.split(":", 1)[1].strip(), spill))
+            cur = None
+    return " | ".join(out) or "not in the report (cached build)"
 
 
 def rest_vertices():
@@ -1021,12 +1054,27 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
     lib = timing.ms(lambda: S @ xd)
     err_lib, _ = rel_err(S @ xd, yp)
     nent = B * asm.Dout
+    require(torch.equal(K23.element_matvec(asm, E, xd), y),
+            "element_matvec does not repeat its bits")
+    # what the L2 flush costs a kernel that streams E: E summed alone, and
+    # K4 and the library again after a flush that leaves L2 clean
+    e_read = timing.ms(lambda: E.sum())
+    clean_ms = timing.kernel_ms(lambda: K23.element_matvec(asm, E, xd),
+                                read_flush=True)
+    lib_clean = timing.ms(lambda: S @ xd, read_flush=True)
+    e_clean = timing.ms(lambda: E.sum(), read_flush=True)
     report("element_matvec", err, rel,
            timing.kernel_ms(lambda: K23.element_matvec(asm, E, xd)),
            timing.ms(lambda: K23.element_matvec_plain(asm, E, xd)),
-           bound_ms(nbytes(E, asm.loc_cols, xd, asm.row_ptr, asm.row_ent, y),
+           bound_ms(nbytes(E, asm.loc_cols, xd, asm.row_ptr, asm.ent_pos, y),
                     2 * nent * asm.Din + nent), lib,
-           "(library: CSR SpMV, err %.1e)" % err_lib)
+           "(library: CSR SpMV, err %.1e; repeats its bits; the former "
+           "one-thread-per-entry kernel took 0.0535 ms; E.sum() "
+           "alone %.4f ms; after a flush that leaves L2 clean: K4 %.4f ms, "
+           "library %.4f ms, E.sum() %.4f ms; ptxas: entries %s; rows %s)"
+           % (err_lib, e_read, clean_ms, lib_clean, e_clean,
+              ptxas_usage("element_matvec_entries"),
+              ptxas_usage("element_matvec_rows")))
     del S
 
     # ---- K5a band_assemble ----
@@ -1089,19 +1137,39 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
     err_lib_s, _ = rel_err(torch.cholesky_solve(rhs[:, None], Lc)[:, 0], ys_p)
     del Lc
     torch.cuda.empty_cache()
+    require(torch.equal(K5.band_solve(plan, panels, rhs), ys),
+            "band_solve does not repeat its bits")
     s_ms = timing.graph_ms(lambda: K5.band_solve(plan, panels, rhs))
-    s_launch_ms = timing.ms(lambda: K5.band_solve(plan, panels, rhs),
-                            cover_cycles=1)
+    # from the host as the solver launches it (its error word read once a
+    # solve), and with the call's own word read back after each call
+    err_word = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    s_launch_ms = timing.ms(
+        lambda: K5.band_solve(plan, panels, rhs, err=err_word),
+        cover_cycles=1)
+    require(int(err_word[0]) == 0, "band_solve: a wait timed out")
+    s_own_ms = timing.ms(lambda: K5.band_solve(plan, panels, rhs),
+                         cover_cycles=1)
+    s_clean = timing.graph_ms(lambda: K5.band_solve(plan, panels, rhs),
+                              read_flush=True)
     report("band_solve", e_y, r_y, s_ms,
            timing.ms(lambda: K5.band_solve_plain(plan, panels, rhs), reps=2,
                      warmup=1),
-           bound_ms(nbytes(panels, rhs, arrs["perm_ext"], arrs["invp_ext"],
-                           ys), 4 * panels.numel()), s_lib,
-           "(launches back to back in a CUDA graph; panels read once in "
-           "the bound, twice by the algorithm; %.4f ms launched from the "
-           "host; library: "
-           "torch.cholesky_solve with the dense factor, err %.1e)"
-           % (s_launch_ms, err_lib_s))
+           bound_ms(nbytes(panels, rhs, arrs["perm_ext"], ys),
+                    4 * panels.numel()), s_lib,
+           "(one CUDA-graph replay of the memset and the two persistent "
+           "kernels; %.4f ms launched from the host as the solver launches "
+           "it, %.4f ms with the error word read back after the call; "
+           "%.3f us per block column and direction; panels read "
+           "once in the bound, twice by the algorithm; repeats its bits; "
+           "%.4f ms in a graph after a flush that leaves L2 clean; "
+           "the former host loop of ~1,190 kernels took 4.761 ms in a "
+           "graph and 6.322 ms from the host; library: "
+           "torch.cholesky_solve with the dense factor, err %.1e; ptxas: "
+           "forward %s; backward %s; dynamic shared memory %d B each)"
+           % (s_launch_ms, s_own_ms, s_ms * 1e3 / (2 * plan.nb), s_clean,
+              err_lib_s,
+              ptxas_usage("band_fwd_kernel"), ptxas_usage("band_bwd_kernel"),
+              K5C_SMEM_BYTES))
     del panels
     torch.cuda.empty_cache()
     return f_lib_ms, s_lib

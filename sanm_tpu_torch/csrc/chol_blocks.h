@@ -8,11 +8,13 @@
 //   triangular inverse (optionally writing L back in place);
 // * gemm_nt_tile / gemm_xn_tile: one 64 x 64 output tile of a product
 //   through f64 mma.sync (m8n8k4) from shared memory;
-// * the substitution steps: a one-CTA step with an s x s inverse
-//   (forward: r = inv r; backward: y = inv^T (y - sum of partials)) and
-//   the many-CTA panel steps (forward rb -= T y; backward partial column
-//   sums of T^T xb in fixed row groups, added in order by the diagonal
-//   step), each with the panel's row stride as an argument;
+// * the substitution steps of K6c and K7c (K5c has its own persistent
+//   kernels, band.cu, with the same forward arithmetic): a one-CTA step
+//   with an s x s inverse (forward: r = inv r; backward: y = inv^T (y -
+//   sum of partials)) and the many-CTA panel steps (forward rb -= T y;
+//   backward partial column sums of T^T xb in fixed row groups, added in
+//   order by the diagonal step), each with the panel's row stride as an
+//   argument;
 // * the permutation gather and scatter of the right-hand side.
 //
 // Everything is in an anonymous namespace: each .cu file that includes
@@ -465,30 +467,26 @@ __device__ __forceinline__ void bwd_diag_step(
     }
 }
 
-// The steps as kernels of one panel (the band's, the dense factor's and
-// SPIKE's reduced LU).  kLd > 0 fixes the panel's row stride at compile
-// time (the band's panels: kLd = kBlock keeps the band solve's index
-// arithmetic constant); kLd = 0 takes the run-time ldt.
+// The steps as kernels of one panel (the dense factor's and SPIKE's
+// reduced LU), with the panel's row stride ldt.
 __global__ void __launch_bounds__(kDiagThreads)
 fwd_diag_kernel(const double* __restrict__ inv, double* __restrict__ r) {
     fwd_diag_step(inv, r);
 }
 
-template <int64_t kLd>
 __global__ void __launch_bounds__(kThreads)
 fwd_panel_kernel(const double* __restrict__ T, int64_t ldt,
                  const double* __restrict__ y, double* __restrict__ rb,
                  int64_t rows) {
-    fwd_panel_step(T, kLd > 0 ? kLd : ldt, y, rb, rows, blockIdx.x);
+    fwd_panel_step(T, ldt, y, rb, rows, blockIdx.x);
 }
 
-template <int64_t kLd>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_panel_kernel(const double* __restrict__ T, int64_t ldt,
                  const double* __restrict__ xb, double* __restrict__ partial,
                  int64_t rows) {
-    bwd_panel_step(T, kLd > 0 ? kLd : ldt, xb,
-                   partial + (int64_t)blockIdx.x * kBlock, rows, blockIdx.x);
+    bwd_panel_step(T, ldt, xb, partial + (int64_t)blockIdx.x * kBlock, rows,
+                   blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kDiagThreads)

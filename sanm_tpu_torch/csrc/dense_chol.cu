@@ -131,7 +131,7 @@ extern "C" int sanm_dense_solve(const double* L, const double* inv,
         const int64_t rows = npad - (j + 1) * s;
         fwd_diag_kernel<<<1, kDiagThreads, 0, st>>>(inv + j * s * s, r);
         if (rows > 0)
-            fwd_panel_kernel<0>
+            fwd_panel_kernel
                 <<<(unsigned)(rows / kSolveRows), kThreads, 0, st>>>(
                     L + (j + 1) * s * npad + j * s, npad, r, r + s, rows);
         err = cudaGetLastError();
@@ -142,7 +142,7 @@ extern "C" int sanm_dense_solve(const double* L, const double* inv,
         const int64_t rows = npad - (j + 1) * s;
         const int64_t ng = (rows + kBwdRows - 1) / kBwdRows;
         if (rows > 0)
-            bwd_panel_kernel<0><<<(unsigned)ng, kBwdThreads, 0, st>>>(
+            bwd_panel_kernel<<<(unsigned)ng, kBwdThreads, 0, st>>>(
                 L + (j + 1) * s * npad + j * s, npad, r + s, partial, rows);
         bwd_diag_kernel<<<1, kDiagThreads, 0, st>>>(inv + j * s * s, partial,
                                                     ng, r);

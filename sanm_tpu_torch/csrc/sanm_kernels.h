@@ -1,9 +1,9 @@
 // C interface of the port's hand-written CUDA kernels (loaded with ctypes
 // by sanm_tpu_torch/kernels.py).  Every entry point launches on the given
 // stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() after its launches (0 = launched).  The band entry
-// points loop over the block columns on the host and launch a few kernels
-// per column.
+// cudaGetLastError() after its launches (0 = launched).  The band and
+// dense factors loop over the block columns on the host and launch a few
+// kernels per column.
 //
 // Arrays are float64 and int32, contiguous, row-major, on one card.
 #pragma once
@@ -42,12 +42,16 @@ int sanm_nhc_step(double* hist, const double* gin, const double* bias,
                   void* stream);
 
 // K4: out[r] = (A x)[r] from the condensed stiffness E (B, Dout, Din):
-// contrib[e] = sum_j E[e, j] x[loc_cols[b, j]] (b = e / Dout; columns >= n
-// read as zero), then the row sums of remap_out's gather form.
+// crow[ent_pos[e]] = sum_j E[e, j] x[loc_cols[b, j]] (b = e / Dout;
+// columns >= n read as zero; entries with ent_pos -1 are dead), then
+// out[r] = sum of crow[row_ptr[r] : row_ptr[r+1]] in ascending order
+// (crow: scratch of row_ptr[n_rows] doubles, the live entries in row
+// order).  Dout = 12 and Din = 12 or 13 (the t column); other shapes
+// return cudaErrorInvalidValue.
 int sanm_element_matvec(const double* E, const int32_t* loc_cols,
-                        const double* x, const int32_t* row_ptr,
-                        const int32_t* row_ent, double* contrib, double* out,
-                        int64_t n, int64_t n_rows, int64_t nent, int Dout,
+                        const double* x, const int32_t* ent_pos,
+                        const int32_t* row_ptr, double* crow, double* out,
+                        int64_t n, int64_t n_rows, int64_t B, int Dout,
                         int Din, void* stream);
 
 // K5a: zero the working band (band_len doubles), scale[r] =
@@ -69,14 +73,21 @@ int sanm_band_factor(double* band, double* panels, const int64_t* panel_off,
                      void* stream);
 
 // K5c: out = (L L^T)^-1 rhs in the original ordering: rhs (n) gathered by
-// perm_ext into work (nrow, zero past n), forward and backward
-// substitution against the panels, out[i] = work[invp_ext[i]].  partial
-// holds 2 w rows of s doubles; panel_off and blk_w are HOST arrays.
+// perm_ext (zero past n), forward and backward substitution against the
+// panels, each one persistent kernel whose CTAs take block rows (columns)
+// by ticket and poll each other's published results; out[perm_ext[g]] =
+// x[g] for perm_ext[g] < n.  panel_off (nb + 1), blk_w and row_lo (nb:
+// the first block column whose reach covers block row i) are DEVICE
+// arrays; work (nb s) ends holding the permuted solution; sync holds 16
+// bytes of counters, then 4 nb s 64-bit words, all zeroed here (4 + 8 nb
+// s int32).  *err (zeroed by the caller, not here) is set to 1 when a
+// wait timed out, and a call that finds it set does nothing: the result
+// of that call and of every later one on the same word is then invalid.
 int sanm_band_solve(const double* panels, const int64_t* panel_off,
-                    const int64_t* blk_w, const int32_t* perm_ext,
-                    const int32_t* invp_ext, const double* rhs, double* work,
-                    double* partial, double* out, int64_t n, int64_t nrow,
-                    int64_t nb, void* stream);
+                    const int64_t* blk_w, const int32_t* row_lo,
+                    const int32_t* perm_ext, const double* rhs, double* work,
+                    int* sync, int* err, double* out, int64_t n, int64_t nb,
+                    void* stream);
 
 // K8a: per element the SVD-W of m (B, 3, 3): u (B, 3, 3), s (B, 3) sorted
 // descending, w = u v^T (B, 3, 3), m = u diag(s) u^T w, with the sign flip

@@ -315,7 +315,7 @@ extern "C" int sanm_spike_solve(
             fwd_diag_kernel<<<1, kDiagThreads, 0, st>>>(
                 invL + (p * nbb + i) * s * s, y + i * s);
             if (i + 1 < nbb)
-                fwd_panel_kernel<0>
+                fwd_panel_kernel
                     <<<(unsigned)((b - (i + 1) * s) / kSolveRows), kThreads,
                        0, st>>>(LUp + (i + 1) * s * b + i * s, b, y + i * s,
                                 y + (i + 1) * s, b - (i + 1) * s);
@@ -324,7 +324,7 @@ extern "C" int sanm_spike_solve(
             bwd_diag_kernel<<<1, kDiagThreads, 0, st>>>(
                 invUt + (p * nbb + i) * s * s, partial, 0, y + i * s);
             if (i > 0)
-                fwd_panel_kernel<0>
+                fwd_panel_kernel
                     <<<(unsigned)(i * s / kSolveRows), kThreads, 0, st>>>(
                         LUp + i * s, b, y + i * s, y, i * s);
         }

@@ -67,13 +67,11 @@ _SIGNATURES = {
                      _I64, _F64, _F64, _P],
     "sanm_nhc_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
                       _I32, _P],
-    "sanm_element_matvec": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                            _I32, _I32, _P],
+    "sanm_element_matvec": [_P] * 7 + [_I64, _I64, _I64, _I32, _I32, _P],
     "sanm_band_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                            _I64, _I64, _P],
     "sanm_band_factor": [_P, _P, _P, _P, _I64, _I64, _P],
-    "sanm_band_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                        _I64, _P],
+    "sanm_band_solve": [_P] * 10 + [_I64, _I64, _P],
     "sanm_svd_w": [_P, _P, _P, _P, _I64, _P],
     "sanm_arap_step": [_P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P],
     "sanm_jac_asm_arap": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
@@ -214,6 +212,20 @@ def launch(counter: str, fn_name: str, *args):
                         % (fn_name, err,
                            lib.sanm_error_string(err).decode()))
     LAUNCHES[counter] += 1
+
+
+def check_spin(word, fn_name: str):
+    """Raise if the error word of a kernel whose CTAs wait on each other
+    (a 0-d int32 tensor on the card) is non-zero: a wait exceeded its
+    timeout and the kernel returned without its result.  Reading the word
+    synchronises the host with the card, except while the current stream
+    is captured into a CUDA graph, where nothing can be read (the word
+    stays set for a later read)."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    if int(word):
+        raise SANMError("%s: a wait on another CTA's result timed out; the "
+                        "result is invalid" % fn_name)
 
 
 def on_card(*tensors) -> bool:

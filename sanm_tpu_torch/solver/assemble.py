@@ -85,12 +85,18 @@ class DeviceAssembler:
         self.n, self.n_rows = int(n), int(n_rows)
         loc_rows = np.asarray(loc_rows)
         row_ptr, row_ent = gather_map(loc_rows, self.n_rows)
+        # K4's map from an entry (b, i) to its place in row order (-1:
+        # dead), the inverse of row_ent
+        ent_pos = np.full(loc_rows.size, -1, np.int32)
+        ent_pos[row_ent] = np.arange(row_ent.size, dtype=np.int32)
         self.Lin = self._dev(Lin, _f64)
         self.Lout = self._dev(Lout, _f64)
         self.loc_cols = self._dev(loc_cols, _i32)
         self.loc_rows = self._dev(loc_rows, _i32)
         self.row_ptr = self._dev(row_ptr, _i32)
         self.row_ent = self._dev(row_ent, _i32)
+        self.ent_pos = self._dev(ent_pos, _i32)
+        self.n_live = int(row_ent.size)
         self.jacobian = csr is not None
         if not self.jacobian:
             return
@@ -213,18 +219,20 @@ def element_matvec(asm: DeviceAssembler, E, x):
     """A x (n_rows,) from the condensed element stiffness ``E``
     (B, Dout, Din) for ``x`` (n,): per element the (Dout x Din)
     contraction of the gathered unknowns (the t column and the dead
-    padding read as zero), then the row sums of ``apply_out``."""
+    padding read as zero), then the row sums of ``apply_out``.  The
+    kernel stores each entry's contraction at its place in row order
+    (``ent_pos``) and sums each row's stretch in ascending order."""
     kernels.check(E, "E", (asm.B, asm.Dout, asm.Din), _f64)
     kernels.check(x, "x", (asm.n,), _f64)
     if not kernels.on_card(E, x, asm.loc_cols, asm.row_ptr):
         return element_matvec_plain(asm, E, x)
     out = torch.empty((asm.n_rows,), dtype=_f64, device=x.device)
-    contrib = torch.empty((asm.B * asm.Dout,), dtype=_f64, device=x.device)
+    crow = torch.empty((asm.n_live,), dtype=_f64, device=x.device)
     kernels.launch("element_matvec", "sanm_element_matvec", E.data_ptr(),
                    asm.loc_cols.data_ptr(), x.data_ptr(),
-                   asm.row_ptr.data_ptr(), asm.row_ent.data_ptr(),
-                   contrib.data_ptr(), out.data_ptr(), asm.n, asm.n_rows,
-                   asm.B * asm.Dout, asm.Dout, asm.Din)
+                   asm.ent_pos.data_ptr(), asm.row_ptr.data_ptr(),
+                   crow.data_ptr(), out.data_ptr(), asm.n, asm.n_rows,
+                   asm.B, asm.Dout, asm.Din)
     return out
 
 

@@ -108,6 +108,7 @@ class BandPlan:
         # panel j: (blk_w[j] + 1) s x s doubles at panel_off[j]
         self.panel_off = np.zeros(nb + 1, np.int64)
         np.cumsum((w_need + 1) * s * s, out=self.panel_off[1:])
+        self.row_lo = row_reach(w_need)
 
         # assembly scatter: LOWER-triangle nnz entry e -> flat position
         # in the working band
@@ -158,7 +159,8 @@ class BandPlan:
     def on(self, device):
         """The plan's index arrays on ``device`` (cached)."""
         return arrays_on(self._dev, device, lambda: dict(
-            diag_of_row=(self.diag_of_row, _i32),
+            panel_off=(self.panel_off, _i64), blk_w=(self.blk_w, _i64),
+            row_lo=(self.row_lo, _i32), diag_of_row=(self.diag_of_row, _i32),
             band_sel=(self.band_sel, _i32), sel_rows=(self.sel_rows, _i32),
             sel_cols=(self.sel_cols, _i32), band_idx=(self.band_idx, _i64),
             pad_idx=(self.pad_idx, _i64), perm_ext=(self.perm_ext, _i32),
@@ -169,6 +171,19 @@ class BandPlan:
         s = self.s
         lo, hi = int(self.panel_off[j]), int(self.panel_off[j + 1])
         return panels[lo:hi].view(-1, s, s)
+
+
+def row_reach(blk_w):
+    """``row_lo[i]``, the first block column whose reach covers block row
+    i (i when none does).  The columns that touch row i are then exactly
+    ``row_lo[i] .. i-1`` (a column that reaches row i is followed by
+    columns that reach it too, since the reach comes from rows' profiles);
+    K5c's forward kernel walks that range.  Raises if ``blk_w`` breaks
+    this."""
+    end = np.arange(len(blk_w)) + np.asarray(blk_w, np.int64)
+    sanm_assert(bool(np.all(np.diff(end) >= 0)),
+                "the skyline's last reached rows are not monotone")
+    return np.searchsorted(end, np.arange(len(blk_w))).astype(np.int32)
 
 
 def _kernel_block(plan):
@@ -265,27 +280,47 @@ def band_factor_ok(panels) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def band_solve(plan: BandPlan, panels, rhs):
+def band_solve(plan: BandPlan, panels, rhs, work=None, err=None):
     """``(L L^T)^{-1} rhs`` for ``rhs`` (n,) in the original ordering:
-    zero-extended to nrow_tot, permuted by ``perm_ext``, forward and
-    backward substitution against the panels, permuted back by
-    ``invp_ext`` (``band_tri_solve_fn``, ``band.py:369-385``)."""
+    zero-extended, permuted by ``perm_ext``, forward and backward
+    substitution against the panels, permuted back (``band_tri_solve_fn``,
+    ``band.py:369-385``).  On the card each substitution is one persistent
+    kernel; a ``work`` tensor (nb s,) given by the caller ends holding the
+    permuted solution, pad rows included.
+
+    A wait of one CTA on another that times out sets an error word (an
+    int32 on the card) and invalidates this call's result and that of any
+    later call on the same word.  Without ``err`` the call zeroes a word
+    of its own and reads it back (a host synchronisation), raising on a
+    timeout; with ``err`` (zeroed by the caller) it leaves the reading to
+    the caller (:class:`DeviceBandCholSolver`: once a solve)."""
     arrs = plan.on(rhs.device)
     kernels.check(rhs, "rhs", (plan.n,), _f64)
     kernels.check(panels, "panels", (int(plan.panel_off[-1]),), _f64)
     if not kernels.on_card(rhs, panels, arrs["perm_ext"]):
         return band_solve_plain(plan, panels, rhs)
     _kernel_block(plan)
-    work = torch.empty((plan.nrow_tot,), dtype=_f64, device=rhs.device)
-    # the backward step's column sums: at most 2 w row groups of 64
-    partial = torch.empty((2 * plan.w, plan.s), dtype=_f64,
-                          device=rhs.device)
+    if work is None:
+        work = torch.empty((plan.nb * plan.s,), dtype=_f64,
+                           device=rhs.device)
+    else:
+        kernels.check(work, "work", (plan.nb * plan.s,), _f64)
+    own = err is None
+    if own:
+        err = torch.zeros((1,), dtype=torch.int32, device=rhs.device)
+    else:
+        kernels.check(err, "err", (1,), torch.int32)
+    # counters and the results the kernels publish
+    sync = torch.empty((4 + 8 * plan.nb * plan.s,), dtype=torch.int32,
+                       device=rhs.device)
     out = torch.empty((plan.n,), dtype=_f64, device=rhs.device)
     kernels.launch("band_solve", "sanm_band_solve", panels.data_ptr(),
-                   plan.panel_off.ctypes.data, plan.blk_w.ctypes.data,
-                   arrs["perm_ext"].data_ptr(), arrs["invp_ext"].data_ptr(),
-                   rhs.data_ptr(), work.data_ptr(), partial.data_ptr(),
-                   out.data_ptr(), plan.n, plan.nrow_tot, plan.nb)
+                   arrs["panel_off"].data_ptr(), arrs["blk_w"].data_ptr(),
+                   arrs["row_lo"].data_ptr(), arrs["perm_ext"].data_ptr(),
+                   rhs.data_ptr(), work.data_ptr(), sync.data_ptr(),
+                   err.data_ptr(), out.data_ptr(), plan.n, plan.nb)
+    if own:
+        kernels.check_spin(err[0], "band_solve")
     return out
 
 
@@ -327,7 +362,9 @@ class DeviceBandCholSolver(RefinedCholSolver):
     (``band.py:388-440``): the working band is assembled and factored in
     the constructor and freed; each solve runs one permuted substitution
     per refinement trip (:class:`~sanm_tpu_torch.solver.linear.
-    RefinedCholSolver`)."""
+    RefinedCholSolver`).  On the card the substitutions share one error
+    word, read once a solve (raising on a timed-out wait), so that no
+    trip waits on the host."""
 
     name = "band_chol"
 
@@ -338,9 +375,17 @@ class DeviceBandCholSolver(RefinedCholSolver):
         band, self.scale = band_assemble(plan, data)
         self.panels = band_factor(plan, band)
         del band
+        self.err = (torch.zeros((1,), dtype=torch.int32, device=data.device)
+                    if kernels.on_card(data) else None)
 
     def factor_ok(self) -> bool:
         return band_factor_ok(self.panels)
 
     def tri_solve(self, r):
-        return band_solve(self.plan, self.panels, r)
+        return band_solve(self.plan, self.panels, r, err=self.err)
+
+    def solve(self, b, with_resid=False):
+        out = super().solve(b, with_resid)
+        if self.err is not None:
+            kernels.check_spin(self.err[0], "band_solve")
+        return out

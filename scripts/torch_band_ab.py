@@ -14,7 +14,9 @@ a ~10 ms spin), in the order this, other, other, this, ``ROUNDS`` times.
 Prints the two libraries' max output differences and, per kernel, each
 library's mean and per-round times, then one JSON line of them.  Exits
 non-zero without a CUDA card, or when the outputs differ by more than
-1e-12 relative."""
+1e-12 relative.  Both checkouts must have the persistent band solve (its
+``sanm_band_solve`` takes device plan arrays and a sync buffer); an
+older OTHER_ROOT's solve takes other arguments."""
 
 import ctypes
 import json
@@ -95,9 +97,11 @@ def main(argv):
     work_band = torch.empty_like(band)
     npanel = int(plan.panel_off[-1])
     bufs = {k: dict(panels=torch.empty(npanel, dtype=f64, device="cuda"),
-                    work=torch.empty(plan.nrow_tot, dtype=f64, device="cuda"),
-                    partial=torch.empty((2 * plan.w, plan.s), dtype=f64,
-                                        device="cuda"),
+                    work=torch.empty(plan.nb * plan.s, dtype=f64,
+                                     device="cuda"),
+                    sync=torch.empty(4 + 8 * plan.nb * plan.s,
+                                     dtype=torch.int32, device="cuda"),
+                    err=torch.zeros(1, dtype=torch.int32, device="cuda"),
                     out=torch.empty(plan.n, dtype=f64, device="cuda"))
             for k in libs}
 
@@ -114,11 +118,11 @@ def main(argv):
     def solve(k):
         b = bufs[k]
         check(libs[k].sanm_band_solve(
-            b["panels"].data_ptr(), plan.panel_off.ctypes.data,
-            plan.blk_w.ctypes.data, arrs["perm_ext"].data_ptr(),
-            arrs["invp_ext"].data_ptr(), rhs.data_ptr(), b["work"].data_ptr(),
-            b["partial"].data_ptr(), b["out"].data_ptr(), plan.n,
-            plan.nrow_tot, plan.nb, torch.cuda.current_stream().cuda_stream))
+            b["panels"].data_ptr(), arrs["panel_off"].data_ptr(),
+            arrs["blk_w"].data_ptr(), arrs["row_lo"].data_ptr(),
+            arrs["perm_ext"].data_ptr(), rhs.data_ptr(), b["work"].data_ptr(),
+            b["sync"].data_ptr(), b["err"].data_ptr(), b["out"].data_ptr(),
+            plan.n, plan.nb, torch.cuda.current_stream().cuda_stream))
 
     def restore():
         work_band.copy_(band)
@@ -128,6 +132,9 @@ def main(argv):
         factor(k)
         solve(k)
     torch.cuda.synchronize()
+    for k in libs:
+        cs.require(int(bufs[k]["err"][0]) == 0,
+                   "%s's band solve timed out" % k)
     diffs = {}
     for name, a, b in (("panels", bufs["this"]["panels"],
                         bufs["other"]["panels"]),

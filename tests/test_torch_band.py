@@ -11,6 +11,9 @@ Inputs are made with NumPy from a seed: the random SPD systems of
   (the port's factor is f64; the JAX package's is f32 refined in f64 to
   a 1e-12 residual);
 * ``element_matvec``: 1e-13 relative (f64 sums in another order);
+* the kernels' orders walked on the CPU (:func:`band_tri_solve_walk`,
+  :func:`element_matvec_walk`): 1e-13 relative against the plain versions
+  and the JAX package (the same operations, summed in another order);
 * equilibria: the iterations and Pade decisions equal, coordinates within
   ``COORD_RTOL`` = 1e-9 of the largest coordinate, force-RMS <= 1e-10, as
   ``tests/test_torch_slice.py``.
@@ -34,9 +37,9 @@ from sanm_tpu_torch.solver import band as pband
 from sanm_tpu_torch.solver import linear as plinear
 from sanm_tpu_torch.solver.assemble import element_matvec, jac_asm
 from sanm_tpu_torch.solver.linear import chol_refine_solve
-from sanm_tpu_torch.utils import SANMNumericalError
-from torch_helper import (coo_of, jax_model, port_state, random_sparse_spd,
-                          rel_err, torch_matvec)
+from sanm_tpu_torch.utils import SANMError, SANMNumericalError
+from torch_helper import (coo_of, jax_model, port_state, ragged_spd,
+                          random_sparse_spd, rel_err, torch_matvec)
 from test_torch_slice import COORD_RTOL, RMS, ROOT, solve_port
 
 SOLVE_TOL = 1e-10
@@ -210,6 +213,200 @@ def test_band_factor_matches_dense_cholesky():
         # beyond the skyline reach the factor is exactly zero
         r0 = (j + 1 + int(plan.blk_w[j])) * s
         assert np.abs(L[r0:, j * s:(j + 1) * s]).max(initial=0.0) == 0.0
+
+
+# K5c's persistent kernels (csrc/band.cu) walk BandPlan.row_lo forward and
+# each panel's blocks from the farthest back; the backward kernel sums
+# each column over SLICES row slices (rows k = q mod SLICES), kSubSlices.
+SLICES = 4
+WALK_TOL = 1e-13
+# the ragged system's component sizes and half bandwidths (the card tests'
+# too)
+RAGGED = ([512, 256, 768], [300, 12, 150])
+
+
+def band_tri_solve_walk(plan, panels, r):
+    """The substitutions in the order of K5c's kernels, on the padded,
+    permuted vector ``r``: block row i subtracts block (i, j) times y_j
+    for j = row_lo[i] .. i-1 ascending, then y_i = inv_i r_i; block column
+    j sums its blocks m = w_j-1 .. 0 times x_{j+1+m} per row slice, then
+    x_j = inv_j^T (y_j - the slices in order)."""
+    s = plan.s
+    y = r.clone()
+    for i in range(plan.nb):
+        ri = r[i * s:(i + 1) * s]
+        for j in range(int(plan.row_lo[i]), i):
+            ri = ri - plan.panel(panels, j)[i - j] @ y[j * s:(j + 1) * s]
+        y[i * s:(i + 1) * s] = plan.panel(panels, i)[0] @ ri
+    x = y.clone()
+    for j in reversed(range(plan.nb)):
+        P = plan.panel(panels, j)
+        acc = torch.zeros((SLICES, s), dtype=r.dtype)
+        for m in reversed(range(int(plan.blk_w[j]))):
+            xb = x[(j + 1 + m) * s:(j + 2 + m) * s]
+            acc += (P[1 + m] * xb[:, None]).view(-1, SLICES, s).sum(0)
+        t = y[j * s:(j + 1) * s]
+        for q in range(SLICES):
+            t = t - acc[q]
+        x[j * s:(j + 1) * s] = t @ P[0]
+    return x
+
+
+def walk_systems():
+    """(name, rows, cols, vals, n, s): the random systems at s = 64, a
+    ragged one at s = 128 (components of 512, 256 and 768 unknowns: reach
+    0-3, zero at the end of each) and one of a single block (n = 100, s =
+    128)."""
+    out = []
+    for seed, n, half_bw in SYSTEMS:
+        _, (rows, cols, vals) = random_system(seed, n, half_bw)
+        out.append(("random%d" % seed, rows, cols, vals, n, 64))
+    A = ragged_spd(*RAGGED, np.random.default_rng(9))
+    out.append(("ragged", *coo_of(A), A.shape[0], 128))
+    _, (rows, cols, vals) = random_system(1, 100, 9)
+    out.append(("one block", rows, cols, vals, 100, 128))
+    return out
+
+
+@pytest.mark.parametrize("case", walk_systems(), ids=lambda c: c[0])
+def test_row_reach_lists_each_block_rows_columns(case):
+    """row_lo[i] .. i-1 are exactly the block columns whose skyline reach
+    covers block row i."""
+    name, rows, cols, _, n, s = case
+    plan = pband.BandPlan(rows, cols, n, s)
+    for i in range(plan.nb):
+        touch = [j for j in range(i) if j + plan.blk_w[j] >= i]
+        assert touch == list(range(int(plan.row_lo[i]), i)), (name, i)
+    if name == "ragged":
+        assert (plan.blk_w == 0).sum() >= 3
+        assert len(np.unique(plan.blk_w)) >= 4
+    if name == "one block":
+        assert plan.nb == 1 and list(plan.row_lo) == [0]
+    with pytest.raises(SANMError):
+        pband.row_reach([0, 3, 0, 0])
+
+
+def jax_panels(jp, plan, panels):
+    """The port's flat panels in the JAX package's layout: per run of
+    width wr, (ln, (wr + 1) s, s), zero past each column's own reach."""
+    s = plan.s
+    out = []
+    for j0, ln, wr in jp.runs:
+        cols = []
+        for j in range(j0, j0 + ln):
+            P = plan.panel(panels, j).numpy()
+            full = np.zeros((wr + 1, s, s))
+            full[:P.shape[0]] = P
+            cols.append(full.reshape(-1, s))
+        out.append(jnp.asarray(np.stack(cols)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("case", walk_systems(), ids=lambda c: c[0])
+def test_band_walk_matches_plain_and_jax(monkeypatch, case):
+    name, rows, cols, vals, n, s = case
+    plan = pband.BandPlan(rows, cols, n, s)
+    band, _ = pband.band_assemble(plan, torch.as_tensor(vals))
+    panels = pband.band_factor(plan, band)
+    r = torch.zeros(plan.nrow_tot, dtype=torch.float64)
+    r[:n] = torch.as_tensor(np.random.default_rng(3).standard_normal(n))
+    got = band_tri_solve_walk(plan, panels, r)
+    want = pband.band_tri_solve_plain(plan, panels, r)
+    assert rel_err(got.numpy(), want.numpy()) <= WALK_TOL
+    assert bool((got[n:] == 0.0).all())
+    jp = jax_plan(monkeypatch, rows, cols, n, s)
+    assert np.array_equal(jp.blk_w, plan.blk_w)
+    yj = jband.band_tri_solve(jp, jax_panels(jp, plan, panels),
+                              jnp.asarray(r.numpy()))
+    assert rel_err(got.numpy(), np.asarray(yj)) <= WALK_TOL
+
+
+def test_band_walk_on_cuboid(monkeypatch):
+    """The walk on the cuboid's Jacobian at a definite state, at both
+    block sizes, against the plain version and the JAX package."""
+    _, model, plan, f_sub = jax_model()
+    body, _, _, _ = jax_model()
+    st = port_state(body, model, plan, f_sub)
+    x = model.x0() + np.random.default_rng(4).uniform(-2e-4, 2e-4, plan.n)
+    data, _, _ = jac_asm(st.asm, st.elems, st.asm.apply_in(x))
+    for s in (64, 128):
+        bp = pband.BandPlan(plan.csr_rowidx, plan.csr_cols, plan.n, s)
+        band, _ = pband.band_assemble(bp, data)
+        panels = pband.band_factor(bp, band)
+        r = torch.zeros(bp.nrow_tot, dtype=torch.float64)
+        r[:plan.n] = torch.as_tensor(f_sub)
+        got = band_tri_solve_walk(bp, panels, r)
+        want = pband.band_tri_solve_plain(bp, panels, r)
+        assert rel_err(got.numpy(), want.numpy()) <= WALK_TOL
+        jp = jax_plan(monkeypatch, plan.csr_rowidx, plan.csr_cols, plan.n,
+                      s)
+        yj = jband.band_tri_solve(jp, jax_panels(jp, bp, panels),
+                                  jnp.asarray(r.numpy()))
+        assert rel_err(got.numpy(), np.asarray(yj)) <= WALK_TOL
+
+
+def element_matvec_walk(asm, E, x):
+    """A x in the order of K4's kernels: each entry's contraction in
+    ascending j stored at its place in row order (``ent_pos``), then each
+    row's stretch summed in ascending order."""
+    xp = torch.zeros(asm.n + 2, dtype=torch.float64)
+    xp[:asm.n] = x
+    g = xp[asm.loc_cols.long()]
+    c = torch.zeros((asm.B, asm.Dout), dtype=torch.float64)
+    for j in range(asm.Din):
+        c = c + E[:, :, j] * g[:, None, j]
+    pos = asm.ent_pos.long()
+    live = pos >= 0
+    crow = torch.zeros(asm.n_live, dtype=torch.float64)
+    crow[pos[live]] = c.reshape(-1)[live]
+    ptr = asm.row_ptr.long()
+    cnt = ptr[1:] - ptr[:-1]
+    out = torch.zeros(asm.n_rows, dtype=torch.float64)
+    for t in range(int(cnt.max())):
+        m = cnt > t
+        out[m] += crow[ptr[:-1][m] + t]
+    return out
+
+
+def test_ent_pos_inverts_the_row_gather_map():
+    body, model, plan, f_sub = jax_model()
+    asm = port_state(body, model, plan, f_sub).asm
+    pos, ent = asm.ent_pos.numpy(), asm.row_ent.numpy()
+    assert asm.n_live == ent.size == int(asm.row_ptr[-1])
+    assert np.array_equal(pos[ent], np.arange(ent.size))
+    dead = np.asarray(asm.loc_rows).reshape(-1) >= asm.n_rows
+    assert np.array_equal(pos < 0, dead)
+
+
+def test_element_matvec_walk_matches_plain_and_jax():
+    body, model, plan, f_sub = jax_model()
+    st = port_state(body, model, plan, f_sub)
+    x0 = model.x0() + np.random.default_rng(5).uniform(-0.002, 0.002,
+                                                       plan.n)
+    _, _, E = jac_asm(st.asm, st.elems, st.asm.apply_in(x0))
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(plan.n))
+    got = element_matvec_walk(st.asm, E, x)
+    assert rel_err(got.numpy(), element_matvec(st.asm, E, x).numpy()) <= (
+        WALK_TOL)
+    want = plan.element_matvec(jnp.asarray(E.numpy()), jnp.asarray(x))
+    assert rel_err(got.numpy(), np.asarray(want)) <= WALK_TOL
+
+
+def test_element_matvec_walk_with_t_column():
+    """Din = 13 (the deform plan's t column, read as zero) against the
+    plain version and the JAX package's plan."""
+    from test_torch_deform import deform_bodies, models
+
+    jm, pm, plan = models(deform_bodies("all"), "neohookean_c")
+    assert pm.asm.Din == 13
+    xt0 = np.concatenate([pm.x0(), [0.37]])
+    _, _, E = pm.jac_asm(pm.asm.apply_in(xt0))
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(pm.asm.n))
+    got = element_matvec_walk(pm.asm, E, x)
+    assert rel_err(got.numpy(), element_matvec(pm.asm, E, x).numpy()) <= (
+        WALK_TOL)
+    want = plan.element_matvec(jnp.asarray(E.numpy()), jnp.asarray(x))
+    assert rel_err(got.numpy(), np.asarray(want)) <= WALK_TOL
 
 
 def test_element_matvec_matches_jax():

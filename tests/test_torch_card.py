@@ -7,11 +7,14 @@ torch versions are the oracle, and they are held against the JAX package
 by ``test_torch_kernels.py`` on the CPU.  Tolerance: 1e-12 relative to
 the largest magnitude (f64 sums in another order, fused multiply-adds)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TOL = 1e-12
 
@@ -110,11 +113,41 @@ def band_systems(models):
     return out
 
 
+def k5c_systems(models):
+    """:func:`band_systems` plus two for the band solve's kernels: a
+    ragged skyline (reach 0-3 blocks, zero at the end of each of three
+    components) and a single block column (n = 100)."""
+    import torch_helper as th
+
+    out = band_systems(models)
+    for A in (th.ragged_spd([512, 256, 768], [300, 12, 150],
+                            np.random.default_rng(9)),
+              th.random_sparse_spd(100, 9, np.random.default_rng(1))):
+        rows, cols, vals = th.coo_of(A)
+        dg = torch.as_tensor(vals).cuda()
+        out.append((rows, cols, dg, torch.as_tensor(vals),
+                    th.torch_matvec(rows, cols, dg, A.shape[0]), A.shape[0]))
+    return out
+
+
+def check_band_solve(K5, plan, panels, rhs):
+    """K5c on the card against the plain version: within BAND_TOL, the
+    pad rows of the permuted solution exact zeros, and a second call the
+    same bits."""
+    work = torch.empty(plan.nb * plan.s, dtype=torch.float64, device="cuda")
+    y = K5.band_solve(plan, panels, rhs.cuda(), work=work)
+    y_p = K5.band_solve_plain(plan, panels.cpu(), rhs.cpu())
+    assert rel(y, y_p) <= BAND_TOL["band_solve"]
+    assert bool((work[plan.n:] == 0.0).all())
+    assert torch.equal(K5.band_solve(plan, panels, rhs.cuda()), y)
+    return y
+
+
 def test_band_kernels(models):
     from sanm_tpu_torch import kernels
     from sanm_tpu_torch.solver import band as K5
 
-    for rows, cols, data_g, data_c, mv, n in band_systems(models):
+    for rows, cols, data_g, data_c, mv, n in k5c_systems(models):
         plan = K5.BandPlan(rows, cols, n)
         n0 = dict(kernels.LAUNCHES)
         band_g, sc_g = K5.band_assemble(plan, data_g)
@@ -128,9 +161,7 @@ def test_band_kernels(models):
         assert K5.band_factor_ok(pan_p) and K5.band_factor_ok(pan_g)
         assert rel(pan_g, pan_p) <= BAND_TOL["band_factor"]
         rhs = torch.as_tensor(np.random.default_rng(5).standard_normal(n))
-        y_g = K5.band_solve(plan, pan_g, rhs.cuda())
-        y_c = K5.band_solve_plain(plan, pan_g.cpu(), rhs)
-        assert rel(y_g, y_c) <= BAND_TOL["band_solve"]
+        check_band_solve(K5, plan, pan_g, rhs)
         # the refined solver converges on the card
         solver = K5.DeviceBandCholSolver(plan, data_g, mv)
         x, res = solver.solve(rhs.cuda(), with_resid=True)
@@ -142,6 +173,64 @@ def test_band_kernels(models):
         for name, count in (("band_assemble", 3), ("band_factor", 3),
                             ("band_solve", 2)):
             assert kernels.LAUNCHES[name] >= n0[name] + count, name
+
+
+def test_band_solve_error_word(models):
+    """A set error word (what a timed-out wait leaves) stops the band
+    solve's kernels at once and makes the call, or the solver, raise."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import band as K5
+    from sanm_tpu_torch.utils import SANMError
+
+    rows, cols, data_g, _, mv, n = band_systems(models)[1]
+    plan = K5.BandPlan(rows, cols, n)
+    band, scale = K5.band_assemble(plan, data_g)
+    panels = K5.band_factor(plan, band)
+    rhs = torch.as_tensor(np.random.default_rng(5).standard_normal(n)).cuda()
+    err = torch.ones((1,), dtype=torch.int32, device="cuda")
+    K5.band_solve(plan, panels, rhs, err=err)
+    torch.cuda.synchronize()
+    with pytest.raises(SANMError, match="timed out"):
+        kernels.check_spin(err[0], "band_solve")
+    solver = K5.DeviceBandCholSolver(plan, data_g, mv)
+    solver.solve(rhs)
+    solver.err.fill_(1)
+    with pytest.raises(SANMError, match="timed out"):
+        solver.solve(rhs)
+
+
+@pytest.fixture(scope="module")
+def armadillo():
+    """armadillo-small NHC gravity on the card: the model, the Jacobian
+    (data, E) at rest and the load."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import app
+
+    path = os.path.join(ROOT, "configs", "armadillo_small.json")
+    cfg = app.read_json(path)
+    body, f_full, _ = app.gravity_setup(cfg, os.path.dirname(path))
+    model = body.make_forward(app.energy_model_of(cfg), device="cuda")
+    data, _, E = model.jac_asm(model.asm.apply_in(model.x0()))
+    return model, data, E, model.lt_inp.copy_vtx_values(f_full)
+
+
+def test_band_solve_at_armadillo(armadillo):
+    """K5c at armadillo-small's plan (298 block columns) on the scaled
+    load and a random vector."""
+    from sanm_tpu_torch.solver import band as K5
+
+    model, data, _, f = armadillo
+    asm = model.asm
+    plan = K5.BandPlan(asm.csr_rowidx, asm.csr_cols, asm.n)
+    band, scale = K5.band_assemble(plan, data)
+    panels = K5.band_factor(plan, band)
+    del band
+    assert K5.band_factor_ok(panels)
+    check_band_solve(K5, plan, panels,
+                     torch.as_tensor(f, dtype=torch.float64).cuda() * scale)
+    check_band_solve(K5, plan, panels, torch.as_tensor(
+        np.random.default_rng(12).standard_normal(asm.n)))
 
 
 def test_band_factor_indefinite_state(models):
@@ -238,8 +327,24 @@ def test_element_matvec(models):
     got = K.element_matvec(g.asm, E_g, v.cuda())
     want = K.element_matvec_plain(c.asm, E_g.cpu(), v)
     assert rel(got, want) <= BAND_TOL["element_matvec"]
+    assert torch.equal(K.element_matvec(g.asm, E_g, v.cuda()), got)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["element_matvec"] == n0 + 1
+    assert kernels.LAUNCHES["element_matvec"] == n0 + 2
+
+
+def test_element_matvec_at_armadillo(armadillo):
+    """K4 at armadillo-small (Din = 12) against the plain version,
+    repeating its bits (Din = 13: test_deform_kernels)."""
+    from sanm_tpu_torch.solver import assemble as K
+
+    model, _, E, _ = armadillo
+    asm = model.asm
+    v = torch.as_tensor(
+        np.random.default_rng(14).standard_normal(asm.n)).cuda()
+    got = K.element_matvec(asm, E, v)
+    assert rel(got, K.element_matvec_plain(asm, E, v)) <= BAND_TOL[
+        "element_matvec"]
+    assert torch.equal(K.element_matvec(asm, E, v), got)
 
 
 # K8a-c (ARAP) against their plain versions.  Tolerances (relative to the
@@ -462,12 +567,13 @@ def test_deform_kernels(deform_models):
         assert rel(a, b) <= TOL
     assert rel(K.grad_t(g.asm, E_g), K.grad_t_plain(c.asm, E_c)) <= TOL
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(g.asm.n))
-    assert rel(K.element_matvec(g.asm, E_g, x.cuda()),
-               K.element_matvec_plain(c.asm, E_c, x)) <= TOL
+    y = K.element_matvec(g.asm, E_g, x.cuda())
+    assert rel(y, K.element_matvec_plain(c.asm, E_c, x)) <= TOL
+    assert torch.equal(K.element_matvec(g.asm, E_g, x.cuda()), y)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["remap_in"] == n0["remap_in"] + 1
     assert kernels.LAUNCHES["grad_t"] == n0["grad_t"] + 2
-    assert kernels.LAUNCHES["element_matvec"] == n0["element_matvec"] + 1
+    assert kernels.LAUNCHES["element_matvec"] == n0["element_matvec"] + 2
 
 
 # The inverse slice: K1i and K3i for NHC and NHI against their plain

@@ -108,6 +108,20 @@ def random_sparse_spd(n, half_bw, rng, density=0.3):
     return -sp.csr_matrix((A.data, (A.row, A.col)), shape=(n, n))
 
 
+def ragged_spd(sizes, half_bws, rng):
+    """A block-diagonal system of :func:`random_sparse_spd` components,
+    scrambled by one permutation; CSR.  Components whose sizes are
+    multiples of the band's block size keep to their own block columns
+    after the plan's RCM, so the skyline reach is ragged and the last
+    column of each component reaches nothing (w_j = 0)."""
+    import scipy.sparse as sp
+
+    A = sp.block_diag([random_sparse_spd(m, h, rng)
+                       for m, h in zip(sizes, half_bws)]).tocsr()
+    p = rng.permutation(A.shape[0])
+    return A[p][:, p].tocsr()
+
+
 def coo_of(A):
     """``(rows, cols, vals)`` of a CSR matrix in COO order (int32 indices),
     as ``tests/test_band.py``'s stub assembler holds them."""
