@@ -26,7 +26,11 @@ Phases, each timed:
    or K5a/b + K7b/c launched; the plan sizes, the peak card memory (the
    dense phase fails above 1.5 factors) and the factor, solve,
    refinement and step times are printed;
-5. kernels: K1, K2 (remap_in, remap_out), K3, K4 (element_matvec) and
+5. mma probe: the card's f64 mma.sync shapes (m8n8k4, m16n8k4, k8, k16)
+   checked against torch on one warp's product and timed on one SM and
+   on the card, and the factors' product tile (``tile_nt``) in its
+   variants against ``torch.addmm`` at depths 128 and 256;
+   kernels: K1, K2 (remap_in, remap_out), K3, K4 (element_matvec) and
    K5 (band_assemble, band_factor, band_solve) are each held against
    their plain PyTorch version on the armadillo-small model state, with
    the f64 tolerances in ``TOL``: remap_in, K3, K4, K5 and remap_out at
@@ -34,7 +38,9 @@ Phases, each timed:
    on every K1 bias, K1 along a real first ANM restart (bias orders
    2..20); kernel, plain and (where one PyTorch call computes the same
    function) library times, and the least time the card could take
-   (``bound``); K6b (dense_factor) and K6c (dense_solve) on the dense
+   (``bound``); the factors' diagonal step alone on the band's first
+   diagonal block, against its plain version and timed; K5b and K6b
+   repeat their bits; K6b (dense_factor) and K6c (dense_solve) on the dense
    matrix of the same Jacobian, K7b (spike_rhs_solve) on its SPIKE
    spikes' right-hand sides and K7c (spike_solve) on the scaled load,
    with the band rows' dense library times as their yardsticks (K7b: a
@@ -92,7 +98,8 @@ Phases, each timed:
    cuboid of ``tests/test_app_cli.py`` (``CG_PENALTY_TASK``) on ``cg``,
    card against CPU, with csr_matvec_t launched;
 13. profile: one warm band_chol re-solve of armadillo-small (NHC) under
-   ``torch.profiler``: device time by kernel and the card's busy share.
+   ``torch.profiler``: device time by kernel, the card's busy share and
+   the factors' diagonal step's share.
 
 14. inverse: ``gravity`` on ``configs/armadillo_small.json`` (NHC) and
    ``configs/bob.json`` (NHI), each with ``override_inverse.json`` (the
@@ -614,7 +621,98 @@ def phase_profile(torch, solver):
         top = sorted(parts.items(), key=lambda kv: -kv[1][0])
         say("profile by kernel: " + ", ".join(
             "%s %.3f ms x%d" % (k, ms, c) for k, (ms, c) in top[:16]))
+        d_ms, d_n = parts.get("diag_factor_kernel<false>", (0.0, 0))
+        say("profile: the factors' diagonal step %.3f ms x%d, %.1f%% of the "
+            "device time, %.1f%% of the wall" % (
+                d_ms, d_n, 100.0 * d_ms / busy, 100.0 * d_ms / wall_ms))
     phase_done("profile", t0)
+
+
+MMA_SHAPES = ((8, 8, 4), (16, 8, 4), (16, 8, 8), (16, 8, 16))
+TILE_VARIANTS = ("128x64 m8n8k4", "128x64 m16n8k4", "128x64 m16n8k8",
+                 "128x64 m16n8k16", "128x128 m16n8k8 3 stages",
+                 "128x128 m16n8k8 4 stages", "128x128 m16n8k4 4 stages",
+                 "64x128 m16n8k8", "128x128 m16n8k8 16 warps 3 stages",
+                 "128x128 m16n8k8 16 warps 4 stages",
+                 "256x64 m16n8k8 16 warps", "128x64 m16n8k8 4 warps",
+                 "128x64 m16n8k8 2 stages of 32",
+                 "128x64 m16n8k8 4 warps 2 stages of 32",
+                 "128x64 m16n8k8 a subtraction per 128 deep")
+
+
+def phase_mma_probe(torch):
+    """The card's f64 mma.sync shapes (``csrc/mma_probe.cu``): each one's
+    fragment maps against torch on one warp's product, and its rate on one
+    SM and on the card (8 warps a CTA, 8 independent products a warp);
+    then the factors' product tile (``tile_nt``) in each variant against
+    ``torch.addmm`` at depth 128 (a band column's update) and 256 (the
+    dense factor's pairs), on an 8192 x 8192 output."""
+    from sanm_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    lib = kernels.library()
+    f64 = torch.float64
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def ev_ms(fn, reps):
+        fn()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+
+    for shape, (m, n, k) in enumerate(MMA_SHAPES):
+        A = torch.randn(m, k, dtype=f64, device="cuda", generator=g)
+        B = torch.randn(k, n, dtype=f64, device="cuda", generator=g)
+        C = torch.zeros(m, n, dtype=f64, device="cuda")
+        require(lib.sanm_mma_layout(shape, A.data_ptr(), B.data_ptr(),
+                                    C.data_ptr(), stream) == 0,
+                "mma layout probe failed to launch")
+        _, lay = rel_err(C, A @ B)
+        require(lay <= 1e-14, "mma m%dn%dk%d fragment maps wrong: rel err "
+                "%.2g" % (m, n, k, lay))
+        fl = 2 * m * n * k
+        iters = 20000 * 512 // fl
+        rates = []
+        for ctas in (1, 264):
+            out = torch.empty(ctas * 256, dtype=f64, device="cuda")
+            ms = ev_ms(lambda: lib.sanm_mma_rate(shape, ctas, iters,
+                                                 out.data_ptr(), stream), 2)
+            rates.append(ctas * 64 * iters * fl / ms / 1e9)
+        say("mma.sync m%dn%dk%d f64: fragment maps rel err %.1e; %.3f "
+            "TFLOP/s on one SM, %.2f on the card" % (m, n, k, lay, *rates))
+    M = N = 8192
+    for K in (128, 256):
+        A = torch.randn(M, K, dtype=f64, device="cuda", generator=g)
+        B = torch.randn(N, K, dtype=f64, device="cuda", generator=g)
+        C0 = torch.randn(M, N, dtype=f64, device="cuda", generator=g)
+        ref = torch.addmm(C0, A, B.T, alpha=-1.0)
+        C = C0.clone()
+        fl = 2.0 * M * N * K
+        lib_ms = ev_ms(lambda: torch.addmm(C0, A, B.T, alpha=-1.0, out=C), 3)
+        parts = ["torch.addmm %.1f" % (fl / lib_ms / 1e9)]
+        for v, name in enumerate(TILE_VARIANTS):
+            C.copy_(C0)
+            require(lib.sanm_tile_probe(v, A.data_ptr(), B.data_ptr(),
+                                        C.data_ptr(), M, N, K, stream) == 0,
+                    "tile probe failed to launch")
+            _, err = rel_err(C, ref)
+            require(err <= 1e-13, "tile %s disagrees with torch.addmm: rel "
+                    "err %.2g" % (name, err))
+            ms = ev_ms(lambda: lib.sanm_tile_probe(
+                v, A.data_ptr(), B.data_ptr(), C.data_ptr(), M, N, K,
+                stream), 3)
+            parts.append("%s %.1f" % (name, fl / ms / 1e9))
+        say("product tile C -= A B^T, %d x %d at depth %d, TFLOP/s: %s"
+            % (M, N, K, ", ".join(parts)))
+        del A, B, C0, C, ref
+    torch.cuda.empty_cache()
+    phase_done("mma probe", t0)
 
 
 def nbytes(*ts):
@@ -1025,6 +1123,7 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
 
     from sanm_tpu_torch.solver import assemble as K23
     from sanm_tpu_torch.solver import band as K5
+    from sanm_tpu_torch.solver import linear as K6
 
     f64, i64 = torch.float64, torch.int64
     asm = model.asm
@@ -1094,6 +1193,38 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
            extra="(memset of the %.2f GB band + scatter)"
            % (nbytes(band) / 1e9))
 
+    # ---- the factors' diagonal step alone (K5b's first kernel, K6b's
+    # too) on the band's first diagonal block, restored by setup ----
+    s = plan.s
+    blk0 = band[:s, plan.w * s:(plan.w + 1) * s].contiguous()
+    blk = torch.empty_like(blk0)
+
+    def restore_blk():
+        blk.copy_(blk0)
+
+    restore_blk()
+    d_inv = K6.diag_factor(blk)
+    d_l = torch.tril(blk)
+    restore_blk()
+    d_inv_p = K6.diag_factor_plain(blk)
+    _, r_di = rel_err(d_inv, d_inv_p)
+    _, r_dl = rel_err(d_l, torch.tril(blk))
+    require(max(r_di, r_dl) <= TOL["band_factor"], "the diagonal step "
+            "disagrees with its plain version: rel err %.3g"
+            % max(r_di, r_dl))
+    d_ms = timing.ms(lambda: K6.diag_factor(blk), reps=20,
+                     setup=restore_blk)
+    d_b2b = timing.ms(lambda: [K6.diag_factor(blk) for _ in range(50)],
+                      reps=2, setup=restore_blk) / 50
+    d_plain_ms = timing.ms(lambda: K6.diag_factor_plain(blk), reps=5,
+                           setup=restore_blk)
+    say("diagonal step alone (diag_factor_kernel, band block 0): %.2f us "
+        "(%.2f us a launch in 50 back to back; plain %.3f ms), rel err L "
+        "%.1e inv %.1e; ptxas %s" % (d_ms * 1e3, d_b2b * 1e3, d_plain_ms,
+                                      r_dl, r_di,
+                                      ptxas_usage("diag_factor_kernel")))
+    del blk, blk0
+
     # ---- K5b band_factor: the kernel overwrites its band, which setup
     # restores from the pristine copy ----
     work = torch.empty_like(band)
@@ -1108,6 +1239,9 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
     require(K5.band_factor_ok(panels), "band factor not finite")
     e_f, r_f = rel_err(panels, panels_p)
     del panels_p
+    restore()
+    require(torch.equal(K5.band_factor(plan, work), panels),
+            "band_factor does not repeat its bits")
     f_ms = timing.graph_ms(lambda: K5.band_factor(plan, work), reps=3,
                            setup=restore)
     f_launch_ms = timing.ms(lambda: K5.band_factor(plan, work), reps=2,
@@ -1123,9 +1257,13 @@ def band_rows(torch, timing, model, data, E, x_eq, f_load, report):
     del M
     report("band_factor", e_f, r_f, f_ms, f_plain_ms,
            bound_ms(nbytes(band, panels), plan.factor_flops(), PEAK_F64_TC_S),
-           f_lib_ms, "(launches back to back in a CUDA graph; %.4f ms "
-           "launched from the host; library: dense torch.linalg.cholesky "
-           "of the %.1f GB matrix)" % (f_launch_ms, 8.0 * n * n / 1e9))
+           f_lib_ms, "(one CUDA-graph replay of the look-ahead's two "
+           "streams; %.4f ms launched from the host; repeats its bits; the "
+           "diagonal step alone %.2f us; library: dense "
+           "torch.linalg.cholesky of the %.1f GB matrix; ptxas: panel %s; "
+           "updates %s)" % (f_launch_ms, d_ms * 1e3, 8.0 * n * n / 1e9,
+                            ptxas_usage("band_panel_kernel"),
+                            ptxas_usage("band_update_kernel")))
     del band
 
     # ---- K5c band_solve of the scaled load vector ----
@@ -1236,6 +1374,12 @@ def direct_rows(torch, timing, model, data, f_load, report, f_lib_ms,
     restore()
     inv = K6.dense_factor(dp, work)
     require(K6.dense_factor_ok(inv), "dense factor not finite")
+    again = torch.empty_like(M)
+    again.copy_(M)
+    require(torch.equal(K6.dense_factor(dp, again), inv)
+            and torch.equal(again, work), "dense_factor does not repeat its "
+            "bits")
+    del again
     plain = {}
     f_plain_ms = timing.ms(
         lambda: plain.update(inv=K6.dense_factor_plain(dp, M)), reps=1,
@@ -1247,10 +1391,14 @@ def direct_rows(torch, timing, model, data, f_load, report, f_lib_ms,
     tri = 8 * dp.npad * (dp.npad + 1) // 2
     report("dense_factor", max(e_l, e_i), max(r_l, r_i), f_ms, f_plain_ms,
            bound_ms(tri * 2 + nbytes(inv), dp.factor_flops(), PEAK_F64_TC_S),
-           f_lib_ms, "(npad %d, %.2f GB; launches back to back in a CUDA "
-           "graph; bound: the lower triangle read and written once; "
-           "library: the band rows' dense torch.linalg.cholesky)"
-           % (dp.npad, 8.0 * dp.npad ** 2 / 1e9))
+           f_lib_ms, "(npad %d, %.2f GB; one CUDA-graph replay of the "
+           "look-ahead's two streams, the trailing update two block columns "
+           "deep; repeats its bits; bound: the lower triangle read and "
+           "written once; library: the band rows' dense "
+           "torch.linalg.cholesky; ptxas: panel %s; updates %s)"
+           % (dp.npad, 8.0 * dp.npad ** 2 / 1e9,
+              ptxas_usage("dense_panel_kernel"),
+              ptxas_usage("dense_update_kernel")))
 
     # ---- K6c dense_solve of the scaled load ----
     rhs = torch.as_tensor(f_load, dtype=f64).cuda() * scale
@@ -2971,6 +3119,7 @@ def main(argv):
     runs_base = phase_baseline(torch)
     launches_cg, stat_cg = phase_cg(torch)
     timing = Timing(torch)
+    phase_mma_probe(torch)
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
     rows.update(phase_nhi_kernels(torch, timing, res_nhi))

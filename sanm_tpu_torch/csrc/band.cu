@@ -19,27 +19,31 @@
 // * assembly: writes the ~2.5 GB working band (a memset) and scatters
 //   ~0.65 M values: memory bound, ~0.75 ms at 3.35 TB/s;
 // * factor: 4.0e11 f64 operations, almost all in the trailing updates:
-//   bound by the f64 tensor-core rate (67 TFLOP/s), ~6.0 ms;
+//   bound by the f64 tensor-core rate (67 TFLOP/s), ~6.0 ms; each column's
+//   update reads and writes its w_j (w_j + 1) / 2 blocks once, ~25 GB in
+//   all at a mean reach of ~21 blocks, ~7 ms at 3.35 TB/s;
 // * solve: reads the 0.86 GB of panels twice: memory bound, ~0.5 ms.
 //
-// Design.  The factor is a host loop over the block columns, three
-// launches per column on one stream (the diagonal step and the product
-// tile are shared with K6 and K7, chol_blocks.h):
-// 1. diag_factor_kernel, one CTA: the s x s diagonal block in shared
-//    memory, a right-looking Cholesky and then the triangular inverse,
-//    one barrier per column each (step k updates with column k, or row k
-//    of the inverse, divided by its pivot on the fly while column k-1, or
-//    row k-1, is scaled, so the two touch disjoint entries).  Its time is
-//    instruction issue and barriers on one SM, ~0.25 ms at s = 128; a
-//    4 x 4 register tile a thread measured twice as slow.  A negative
-//    pivot gives sqrt < 0 = NaN, which propagates through the inverse, the
-//    panels and every later update: never a clamp.
-// 2. panel_kernel: T = P inv^T over the w_j stacked blocks.
-// 3. trailing_kernel: block (j+1+m, j+1+p) -= T[m] T[p]^T for p <= m,
-//    skipping the upper half of the diagonal blocks (junk).
-// Both products run 64 x 64 output tiles per CTA through f64 mma.sync
-// (m8n8k4) from shared memory; every output element is written by one
-// thread, with no atomics, so the factor repeats its bits from run to run.
+// Design.  The factor is a host loop over the block columns on two
+// streams of its own (look_ahead, chol_blocks.h), forked from the
+// caller's and joined back into it.  Per column j, on crit:
+// 1. diag_factor_kernel (chol_blocks.h), one CTA: L[j,j] blocked in 32 x
+//    32 sub-blocks on the tensor cores, and its inverse;
+// 2. band_panel_kernel: T = P inv^T over the w_j stacked blocks, 64 x 128
+//    tiles (tile_nt);
+// 3. the narrow update (band_update_kernel<true>): block column j+1 loses
+//    T[m] T[0]^T, the blocks that the next diagonal step and panel read;
+// and on side, beside column j+1's steps 1-3, the rest of the update
+// (band_update_kernel<false>): block (j+1+m, j+1+p) -= T[m] T[p]^T for 1
+// <= p <= m.  Both updates run 128 x 64 tiles through f64 mma.sync from a
+// cp.async ring, the warps above a diagonal block's diagonal idle.  Column
+// j+1's narrow update waits for column j's rest, which writes block column
+// j+1 too: so every block loses its columns' products in ascending order,
+// as in the plain version, and the factor repeats its bits.  The chain per
+// column is narrow update + diagonal step + panel; the ~1.35 GFLOP of the
+// rest of a column's update runs beside it.  A negative pivot gives NaN,
+// which propagates through the inverse, the panels and every later
+// update: never a clamp.
 // The solve is two persistent kernels, the forward and the backward
 // substitution, one launch each, whose CTAs (one per SM: the 128 KB
 // inverse fills most of its shared memory) take block rows (forward,
@@ -121,42 +125,48 @@ __global__ void band_pad_kernel(const int64_t* __restrict__ pad_idx,
 // K5b band_factor
 // ---------------------------------------------------------------------------
 
+// the depth of the factor tiles' cp.async rings (tile_nt, chol_blocks.h):
+// two CTAs of 92 KB fit an SM
+constexpr int kStages = 3;
+
 // T[m] = P[m] inv^T for the w_j stacked subdiagonal blocks of column j;
-// P[m] = block (j+1+m, j) at window offset (w-1-m)s.  Grid: (w_j s / 64,
-// s / 64) tiles.
-__global__ void __launch_bounds__(kGemmThreads)
-panel_kernel(const double* __restrict__ band, int64_t W, int64_t w,
-             int64_t j, double* __restrict__ panel) {
+// P[m] = block (j+1+m, j) at window offset (w-1-m)s.  Grid: w_j s / 64
+// tiles of 64 x 128.
+__global__ void __launch_bounds__(kFactorThreads, 2)
+band_panel_kernel(const double* __restrict__ band, int64_t W, int64_t w,
+                  int64_t j, double* __restrict__ panel) {
     constexpr int s = kBlock;
-    const int64_t row = (int64_t)blockIdx.x * kTile;
+    const int64_t row = (int64_t)blockIdx.x * 64;
     const int64_t m = row / s, r0 = row - m * s;
-    gemm_nt_tile<false>(
-        band + ((j + 1 + m) * s + r0) * W + (w - 1 - m) * s, W,
-        panel + (int64_t)blockIdx.y * kTile * s, s,
-        panel + (s + row) * s + (int64_t)blockIdx.y * kTile, s, s);
+    tile_nt<64, 128, 32, kStages, kSet>(
+        band + ((j + 1 + m) * s + r0) * W + (w - 1 - m) * s, W, panel, s,
+        panel + (s + row) * s, s, s, -1, true);
 }
 
-// Block (j+1+m, j+1+p) -= T[m] T[p]^T, p <= m, at window offset
-// (w-m+p)s of block row j+1+m.  Grid: (w_j (w_j+1) / 2 pairs, (s/64)^2
-// tiles).
-__global__ void __launch_bounds__(kGemmThreads)
-trailing_kernel(double* __restrict__ band, int64_t W, int64_t w, int64_t j,
-                const double* __restrict__ panel) {
+// Block (j+1+m, j+1+p) -= T[m] T[p]^T at window offset (w-m+p)s of block
+// row j+1+m, as two 128 x 64 tiles (blockIdx.x % 2 the column half).
+// kNarrow: p = 0, m < w_j (grid 2 w_j); else 1 <= p <= m < w_j (grid
+// w_j (w_j - 1)).
+template <bool kNarrow>
+__global__ void __launch_bounds__(kFactorThreads, 2)
+band_update_kernel(double* band, int64_t W, int64_t w, int64_t j,
+                   const double* __restrict__ panel) {
     constexpr int s = kBlock;
-    const int64_t q = blockIdx.x;
-    int64_t m = (int64_t)((sqrt(8.0 * (double)q + 1.0) - 1.0) * 0.5);
-    while (m * (m + 1) / 2 > q) --m;
-    while ((m + 1) * (m + 2) / 2 <= q) ++m;
-    const int64_t p = q - m * (m + 1) / 2;
-    const int nt = s / kTile;
-    const int tr = blockIdx.y / nt, tc = blockIdx.y - tr * nt;
-    if (p == m && tc > tr) return;  // upper half of a diagonal block
-    gemm_nt_tile<true>(
-        panel + (s + m * s + tr * kTile) * (int64_t)s, s,
-        panel + (s + p * s + tc * kTile) * (int64_t)s, s,
-        band + ((j + 1 + m) * s + tr * kTile) * W + (w - m + p) * s +
-            tc * kTile,
-        W, s);
+    const int half = blockIdx.x & 1;
+    const int64_t q = blockIdx.x >> 1;
+    int64_t m = q, p = 0;
+    if (!kNarrow) {
+        m = (int64_t)((sqrt(8.0 * (double)q + 1.0) - 1.0) * 0.5);
+        while (m * (m + 1) / 2 > q) --m;
+        while ((m + 1) * (m + 2) / 2 <= q) ++m;
+        p = q - m * (m + 1) / 2 + 1;
+        ++m;
+    }
+    tile_nt<128, 64, 32, kStages, kSubtract>(
+        panel + (s + m * s) * (int64_t)s, s,
+        panel + (s + p * s + half * 64) * (int64_t)s, s,
+        band + (j + 1 + m) * s * W + (w - m + p) * s + half * 64, W, s,
+        m == p ? half * 64 : -1, false);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,16 +223,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     return t;
-}
-
-__device__ __forceinline__ void cp_async16(double* smem, const double* g) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(a), "l"(g) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // The block's inverse (s x s, 128 KB) into shared memory, asynchronously:
@@ -513,6 +513,25 @@ extern "C" int sanm_band_assemble(const double* data,
     return (int)cudaGetLastError();
 }
 
+// The factor kernels' shared-memory attributes (once per device, by
+// look_ahead).
+static cudaError_t band_factor_setup() {
+    cudaError_t err = cudaFuncSetAttribute(
+        diag_factor_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)diag_smem_bytes());
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            band_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)tile_smem_bytes<64, 128, kStages>());
+    for (const void* k : {(const void*)band_update_kernel<true>,
+                          (const void*)band_update_kernel<false>})
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)tile_smem_bytes<128, 64, kStages>());
+    return err;
+}
+
 extern "C" int sanm_band_factor(double* band, double* panels,
                                 const int64_t* panel_off,
                                 const int64_t* blk_w, int64_t nb, int64_t w,
@@ -520,29 +539,35 @@ extern "C" int sanm_band_factor(double* band, double* panels,
     constexpr int s = kBlock;
     cudaStream_t st = (cudaStream_t)stream;
     const int64_t W = (w + 1) * s;
-    const size_t smem = diag_smem_bytes();
-    cudaError_t err = cudaFuncSetAttribute(
-        diag_factor_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned nt = (unsigned)(s / kTile);
-    for (int64_t j = 0; j < nb; ++j) {
+    LookAhead* la = nullptr;
+    cudaError_t err = look_ahead(&la, band_factor_setup);
+    if (err == cudaSuccess) err = fork_from(la, st);
+    for (int64_t j = 0; j < nb && err == cudaSuccess; ++j) {
         const int64_t wj = blk_w[j];
         double* panel = panels + panel_off[j];
-        diag_factor_kernel<false><<<1, kDiagThreads, smem, st>>>(
-            band, W, j * s, w * s, panel);
-        if (wj > 0) {
-            panel_kernel<<<dim3((unsigned)(wj * s / kTile), nt),
-                           kGemmThreads, 0, st>>>(band, W, w, j, panel);
-            trailing_kernel<<<dim3((unsigned)(wj * (wj + 1) / 2), nt * nt),
-                              kGemmThreads, 0, st>>>(band, W, w, j, panel);
-        }
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
+        diag_factor_kernel<false><<<1, kFactorThreads, diag_smem_bytes(),
+                                    la->crit>>>(band, W, j * s, w * s, panel);
+        if (wj > 0)
+            band_panel_kernel<<<(unsigned)(wj * s / 64), kFactorThreads,
+                                tile_smem_bytes<64, 128, kStages>(), la->crit>>>(
+                band, W, w, j, panel);
+        // column j-1's rest (on side) writes block column j+1 too
+        err = hand_over(la->done, la->side, la->crit);
+        if (err != cudaSuccess || wj == 0) continue;
+        err = hand_over(la->ready, la->crit, la->side);
+        band_update_kernel<true><<<(unsigned)(2 * wj), kFactorThreads,
+                                   tile_smem_bytes<128, 64, kStages>(), la->crit>>>(
+            band, W, w, j, panel);
+        if (wj > 1)
+            band_update_kernel<false>
+                <<<(unsigned)(wj * (wj - 1)), kFactorThreads,
+                   tile_smem_bytes<128, 64, kStages>(), la->side>>>(band, W, w, j,
+                                                           panel);
+        if (err == cudaSuccess) err = cudaGetLastError();
     }
-    return (int)cudaGetLastError();
+    if (err == cudaSuccess) err = join_into(la, st);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
-
 
 // Grid of each substitution: as many CTAs as fit on the card at once (one
 // per SM: the inverse fills most of its shared memory), at most nb.  The

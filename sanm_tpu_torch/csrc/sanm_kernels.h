@@ -67,7 +67,8 @@ int sanm_band_assemble(const double* data, const int32_t* diag_of_row,
 
 // K5b: blocked skyline Cholesky of the working band (overwritten) into the
 // panels; panel_off (nb + 1) and blk_w (nb) are HOST arrays.  The block
-// size s is 128 in every band kernel.
+// size s is 128 in every band kernel.  Runs on two streams of its own,
+// forked from and joined back into `stream`.
 int sanm_band_factor(double* band, double* panels, const int64_t* panel_off,
                      const int64_t* blk_w, int64_t nb, int64_t w,
                      void* stream);
@@ -190,9 +191,14 @@ int sanm_hess_proj_arap(const double* u, const double* s, const double* w,
 
 // K6b: dense blocked Cholesky of A (npad x npad, npad = nb s, row-major,
 // lower triangle read, overwritten by L) and the inverses of its diagonal
-// blocks inv (nb, s, s); T is a scratch panel of (nb - 1) s x s.  s = 128.
-int sanm_dense_factor(double* A, double* inv, double* T, int64_t nb,
-                      void* stream);
+// blocks inv (nb, s, s).  s = 128.  Runs on two streams of its own, forked
+// from and joined back into `stream`.
+int sanm_dense_factor(double* A, double* inv, int64_t nb, void* stream);
+
+// The diagonal step of K5b and K6b alone: the Cholesky factor L of the s x
+// s block a (row-major, lower triangle read and overwritten by L) and
+// inv = L^-1 (s x s, zero above the diagonal).  s = 128.
+int sanm_diag_factor(double* a, double* inv, void* stream);
 
 // K6c: out = (L L^T)^-1 rhs: rhs (n) zero-extended to work (npad), forward
 // and backward substitution against the lower triangle of L and inv,
@@ -256,6 +262,18 @@ int sanm_pcg_step(const int32_t* row_ptr, const int32_t* cols,
                   double* p, double* Ap, double* y, double* S, double* part,
                   int64_t n, int64_t n_steps, int64_t it0, int64_t G,
                   double tol2, double pen, void* stream);
+
+// The f64 mma.sync shapes (mma_probe.cu; on no path of the solver):
+// shape 0 m8n8k4, 1 m16n8k4, 2 m16n8k8, 3 m16n8k16.  sanm_mma_rate: ctas
+// CTAs of 256 threads, iters rounds of 8 mma a warp, one value a thread to
+// out.  sanm_mma_layout: C (M x N) = A (M x K) B (K x N), row-major, with
+// one mma of one warp.  sanm_tile_probe: C (M x N) -= A (M x K) B^T (B N x
+// K) through the factors' 128 x 64 product tile.
+int sanm_mma_rate(int shape, int ctas, int iters, double* out, void* stream);
+int sanm_mma_layout(int shape, const double* A, const double* B, double* C,
+                    void* stream);
+int sanm_tile_probe(int shape, const double* A, const double* B, double* C,
+                    int64_t M, int64_t N, int64_t K, void* stream);
 
 const char* sanm_error_string(int err);
 

@@ -49,7 +49,8 @@ LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "jac_asm_inv_nhi": 0, "dense_factor": 0, "dense_solve": 0,
             "spike_rhs_solve": 0, "spike_solve": 0, "hess_proj": 0,
             "hess_proj_nhi": 0, "hess_proj_arap": 0, "csr_matvec": 0,
-            "csr_matvec_t": 0, "diag_blocks": 0, "pcg_step": 0}
+            "csr_matvec_t": 0, "diag_blocks": 0, "pcg_step": 0,
+            "diag_factor": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -89,7 +90,8 @@ _SIGNATURES = {
                          _I32, _I64, _F64, _F64, _P],
     "sanm_jac_asm_inv_nhi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                              _I32, _I64, _F64, _F64, _P],
-    "sanm_dense_factor": [_P, _P, _P, _I64, _P],
+    "sanm_dense_factor": [_P, _P, _I64, _P],
+    "sanm_diag_factor": [_P, _P, _P],
     "sanm_dense_solve": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "sanm_spike_rhs_solve": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                              _P],
@@ -101,6 +103,9 @@ _SIGNATURES = {
     "sanm_csr_matvec": [_P] * 6 + [_I64, _P],
     "sanm_diag_blocks": [_P, _P, _P, _I64, _I64, _P],
     "sanm_pcg_step": [_P] * 15 + [_I64] * 4 + [_F64, _F64, _P],
+    "sanm_mma_rate": [_I32, _I32, _I32, _P, _P],
+    "sanm_mma_layout": [_I32, _P, _P, _P, _P],
+    "sanm_tile_probe": [_I32, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 

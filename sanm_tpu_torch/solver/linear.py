@@ -207,11 +207,30 @@ def dense_factor(plan: DensePlan, M):
     kernels.check_block(plan.s)
     s = plan.s
     inv = torch.empty((plan.nb, s, s), dtype=_f64, device=M.device)
-    T = torch.empty((max(plan.nb - 1, 1) * s, s), dtype=_f64,
-                    device=M.device)
     kernels.launch("dense_factor", "sanm_dense_factor", M.data_ptr(),
-                   inv.data_ptr(), T.data_ptr(), plan.nb)
+                   inv.data_ptr(), plan.nb)
     return inv
+
+
+def diag_factor(block):
+    """The diagonal step of K5b and K6b alone, on one s x s block: its
+    lower triangle (the upper half is junk) is overwritten by the lower
+    Cholesky factor L; returns inv(L) (s, s), zero above the diagonal.
+    NaN where the block is not positive definite."""
+    kernels.check(block, "block", (kernels.BLOCK, kernels.BLOCK), _f64)
+    if not kernels.on_card(block):
+        return diag_factor_plain(block)
+    inv = torch.empty_like(block)
+    kernels.launch("diag_factor", "sanm_diag_factor", block.data_ptr(),
+                   inv.data_ptr())
+    return inv
+
+
+def diag_factor_plain(block):
+    L = chol_nan(block)
+    block.copy_(L + torch.triu(block, 1))
+    eye = torch.eye(block.shape[0], dtype=_f64, device=block.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
 def chol_nan(D):

@@ -11,6 +11,10 @@ Inputs are made with NumPy from a seed: the random SPD systems of
   (the port's factor is f64; the JAX package's is f32 refined in f64 to
   a 1e-12 residual);
 * ``element_matvec``: 1e-13 relative (f64 sums in another order);
+* the plain factor on the factors' edge plans (``factor_edge_systems``)
+  against the JAX package's ``band_cholesky`` at s = 128: 1e-12 relative
+  to the largest panel entry (one f64 blocked Cholesky against another,
+  summed in another order);
 * the kernels' orders walked on the CPU (:func:`band_tri_solve_walk`,
   :func:`element_matvec_walk`): 1e-13 relative against the plain versions
   and the JAX package (the same operations, summed in another order);
@@ -38,12 +42,14 @@ from sanm_tpu_torch.solver import linear as plinear
 from sanm_tpu_torch.solver.assemble import element_matvec, jac_asm
 from sanm_tpu_torch.solver.linear import chol_refine_solve
 from sanm_tpu_torch.utils import SANMError, SANMNumericalError
-from torch_helper import (coo_of, jax_model, port_state, ragged_spd,
+from torch_helper import (coo_of, factor_edge_systems, jax_model,
+                          port_state, ragged_spd,
                           random_sparse_spd, rel_err, torch_matvec)
 from test_torch_slice import COORD_RTOL, RMS, ROOT, solve_port
 
 SOLVE_TOL = 1e-10
 MATVEC_TOL = 1e-13
+EDGE_TOL = 1e-12
 SYSTEMS = [(0, 601, 37), (1, 100, 9), (3, 800, 61), (4, 257, 5)]
 
 
@@ -213,6 +219,40 @@ def test_band_factor_matches_dense_cholesky():
         # beyond the skyline reach the factor is exactly zero
         r0 = (j + 1 + int(plan.blk_w[j])) * s
         assert np.abs(L[r0:, j * s:(j + 1) * s]).max(initial=0.0) == 0.0
+
+
+@pytest.mark.parametrize("case", factor_edge_systems(),
+                         ids=lambda c: c[0])
+def test_band_factor_edge_plans_match_jax(monkeypatch, case):
+    """The plain band factor (the oracle of K5b, whose look-ahead updates
+    column j+1 before the rest of column j's trailing update) on one, two,
+    three and five block columns and on a skyline with columns of reach 0
+    in the middle, against the JAX package's ``band_cholesky`` in CPU
+    f64 at s = 128: each column's panel (its inverse diagonal block over
+    its w_j subdiagonal blocks) within ``EDGE_TOL``, and the JAX
+    package's merged runs exactly zero past each column's reach."""
+    name, A = case
+    rows, cols, vals = coo_of(A)
+    n = A.shape[0]
+    plan = pband.BandPlan(rows, cols, n)
+    assert plan.s == 128 and plan.nb == -(-n // 128)
+    if name == "gap":
+        assert (plan.blk_w[:-1] == 0).any()
+    band, _ = pband.band_assemble(plan, torch.as_tensor(vals))
+    jp = jax_plan(monkeypatch, rows, cols, n, 128)
+    assert np.array_equal(jp.blk_w, plan.blk_w)
+    runs = jband.band_cholesky(jp, jnp.asarray(band.numpy()))
+    panels = pband.band_factor(plan, band)
+    assert pband.band_factor_ok(panels)
+    s = plan.s
+    for (j0, ln, _), L in zip(jp.runs, runs):
+        L = np.asarray(L)
+        for i in range(ln):
+            j = j0 + i
+            rows_j = (int(plan.blk_w[j]) + 1) * s
+            got = plan.panel(panels, j).reshape(-1, s).numpy()
+            assert rel_err(got, L[i, :rows_j]) <= EDGE_TOL, (name, j)
+            assert np.abs(L[i, rows_j:]).max(initial=0.0) == 0.0
 
 
 # K5c's persistent kernels (csrc/band.cu) walk BandPlan.row_lo forward and

@@ -235,7 +235,10 @@ def test_band_solve_at_armadillo(armadillo):
 
 def test_band_factor_indefinite_state(models):
     """The cuboid's Jacobian at moves of up to 8% of the spacing is
-    indefinite: the kernel's factor, like the plain one, holds NaN."""
+    indefinite: the kernel's factor, like the plain one, holds NaN, from
+    the inverse of the first block column whose diagonal block is not
+    positive definite (the same column in both) through every later
+    panel: never a clamp."""
     from sanm_tpu_torch.solver import assemble as K
     from sanm_tpu_torch.solver import band as K5
 
@@ -245,8 +248,175 @@ def test_band_factor_indefinite_state(models):
     plan = K5.BandPlan(g.asm.csr_rowidx, g.asm.csr_cols, g.asm.n)
     band, _ = K5.band_assemble(plan, data)
     band_p = band.cpu()
-    assert not K5.band_factor_ok(K5.band_factor(plan, band))
-    assert not K5.band_factor_ok(K5.band_factor_plain(plan, band_p))
+    pan = K5.band_factor(plan, band)
+    pan_p = K5.band_factor_plain(plan, band_p)
+    assert not K5.band_factor_ok(pan)
+    assert not K5.band_factor_ok(pan_p)
+
+    def first_nan(panels):
+        bad = [bool(torch.isnan(plan.panel(panels, j)).any())
+               for j in range(plan.nb)]
+        return bad.index(True), bad
+
+    j0, bad = first_nan(pan.cpu())
+    assert (j0, bad) == first_nan(pan_p)
+    assert bool(torch.isnan(plan.panel(pan, j0)[0]).any())
+    assert all(bad[j0:])
+
+
+def test_diag_factor_indefinite_block():
+    """A block whose pivot at row 70 (third 32-row sub-block) is negative:
+    the diagonal step's inverse and L hold NaN in every row from there on,
+    and exact zeros above the inverse's diagonal: never a clamp."""
+    from sanm_tpu_torch.solver import linear as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(7)
+    Q, _ = np.linalg.qr(rng.standard_normal((128, 128)))
+    S = (Q * np.linspace(1.0, 2.0, 128)) @ Q.T
+    S[70, 70] = -1.0
+    blk = torch.as_tensor(S).cuda()
+    inv = K6.diag_factor(blk)
+    assert bool(torch.isnan(inv[70:]).any(dim=1).all())
+    assert bool(torch.isnan(torch.tril(blk)[70:]).any(dim=1).all())
+    assert bool((torch.triu(inv, 1) == 0).all())
+    assert not K6.dense_factor_ok(inv[None])
+
+
+@pytest.mark.parametrize("cond", [1e2, 1e8, 1e12])
+def test_diag_factor_conditions(cond):
+    """The factors' diagonal step alone (K5b's and K6b's first kernel) on
+    a seeded SPD block of condition number ``cond`` against the plain
+    version (``chol_nan`` + ``solve_triangular``).  Both are backward
+    stable: L L^T reproduces the block within 1e-13 relative to its
+    largest entry (sums of 128 rounded products), and L inv = I within
+    1e-13 cond^(1/2) (L's condition number is the block's square root).
+    The two factors differ by their rounding, amplified by the
+    conditioning: L within 1e-14 cond^(1/2) and the inverse within 1e-15
+    cond, relative to their largest entries.  The upper half of the block
+    is left as it was, the inverse is exactly zero above its diagonal, and
+    a second call repeats the bits."""
+    from sanm_tpu_torch.solver import linear as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(int(np.log10(cond)))
+    Q, _ = np.linalg.qr(rng.standard_normal((128, 128)))
+    S = (Q * np.logspace(0.0, -np.log10(cond), 128)) @ Q.T
+    S = 0.5 * (S + S.T)
+    A = torch.as_tensor(S)
+    blk = A.cuda()
+    inv = K6.diag_factor(blk)
+    blk_p = A.clone()
+    inv_p = K6.diag_factor_plain(blk_p)
+    L = torch.tril(blk).cpu()
+    inv = inv.cpu()
+    eye = torch.eye(128, dtype=torch.float64)
+    assert rel(L @ L.T, A) <= 1e-13
+    assert float((L @ inv - eye).abs().max()) <= 1e-13 * cond ** 0.5
+    assert rel(L, torch.tril(blk_p)) <= 1e-14 * cond ** 0.5
+    assert rel(inv, inv_p) <= 1e-15 * cond
+    assert torch.equal(torch.triu(blk.cpu(), 1), torch.triu(A, 1))
+    assert bool((torch.triu(inv, 1) == 0).all())
+    again = A.cuda()
+    assert torch.equal(K6.diag_factor(again).cpu(), inv)
+    assert torch.equal(again, blk)
+
+
+def edge_systems():
+    """``torch_helper.factor_edge_systems`` as (name, rows, cols,
+    data_cuda, data_cpu, n)."""
+    import torch_helper as th
+
+    out = []
+    for name, A in th.factor_edge_systems():
+        rows, cols, vals = th.coo_of(A)
+        out.append((name, rows, cols, torch.as_tensor(vals).cuda(),
+                    torch.as_tensor(vals), A.shape[0]))
+    return out
+
+
+def test_band_factor_edge_plans(models):
+    """K5b on one, two, three and five block columns and on a skyline
+    with columns of reach 0 in the middle (the look-ahead's ends and a
+    column with nothing below it), against the plain version within
+    ``BAND_TOL``; a second call repeats the bits."""
+    from sanm_tpu_torch.solver import band as K5
+
+    for name, rows, cols, data_g, _, n in edge_systems():
+        plan = K5.BandPlan(rows, cols, n)
+        band, _ = K5.band_assemble(plan, data_g)
+        band_p = band.cpu()
+        work = band.clone()
+        pan = K5.band_factor(plan, work)
+        pan_p = K5.band_factor_plain(plan, band_p)
+        assert K5.band_factor_ok(pan), name
+        assert rel(pan, pan_p) <= BAND_TOL["band_factor"], name
+        work.copy_(band)
+        assert torch.equal(K5.band_factor(plan, work), pan), name
+
+
+def test_dense_factor_edge_plans(models):
+    """K6b, which applies its trailing update two block columns at a time
+    (a last column alone when nb is odd), at nb = 1, 2, 3, 5 and 12
+    against the plain version: L's lower triangle and the inverses within
+    ``DIRECT_TOL``; a second call repeats the bits."""
+    from sanm_tpu_torch.solver import linear as K6
+    from sanm_tpu_torch.solver.assemble import DensePlan, dense_assemble
+
+    for name, rows, cols, data_g, _, n in edge_systems():
+        plan = DensePlan(rows, cols, n)
+        M, _ = dense_assemble(plan, data_g)
+        M_p = M.cpu()
+        work = M.clone()
+        inv = K6.dense_factor(plan, work)
+        inv_p = K6.dense_factor_plain(plan, M_p)
+        assert K6.dense_factor_ok(inv), name
+        assert rel(torch.tril(work), torch.tril(M_p)) <= DIRECT_TOL[
+            "dense_factor"], name
+        assert rel(inv, inv_p) <= DIRECT_TOL["dense_factor"], name
+        again = M.clone()
+        assert torch.equal(K6.dense_factor(plan, again), inv), name
+        assert torch.equal(torch.tril(again), torch.tril(work)), name
+
+
+# the variants of sanm_tile_probe (csrc/mma_probe.cu)
+TILE_VARIANTS = 15
+
+
+def test_mma_probe():
+    """Each f64 mma.sync shape's fragment maps (chol_blocks.h) give the
+    product of one warp's mma within 1e-14 relative, and every variant of
+    the factors' product tile gives C - A B^T within 1e-13 relative of
+    ``torch.addmm`` (f64 sums in another order)."""
+    from sanm_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lib = kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f64 = torch.float64
+    for shape, (m, n, k) in enumerate(((8, 8, 4), (16, 8, 4), (16, 8, 8),
+                                       (16, 8, 16))):
+        A = torch.randn(m, k, dtype=f64, device="cuda", generator=g)
+        B = torch.randn(k, n, dtype=f64, device="cuda", generator=g)
+        C = torch.zeros(m, n, dtype=f64, device="cuda")
+        assert lib.sanm_mma_layout(shape, A.data_ptr(), B.data_ptr(),
+                                   C.data_ptr(), stream) == 0
+        assert rel(C, A @ B) <= 1e-14
+    M = N = 256
+    for K in (128, 256):
+        A = torch.randn(M, K, dtype=f64, device="cuda", generator=g)
+        B = torch.randn(N, K, dtype=f64, device="cuda", generator=g)
+        C0 = torch.randn(M, N, dtype=f64, device="cuda", generator=g)
+        ref = torch.addmm(C0, A, B.T, alpha=-1.0)
+        for variant in range(TILE_VARIANTS):
+            C = C0.clone()
+            assert lib.sanm_tile_probe(variant, A.data_ptr(), B.data_ptr(),
+                                       C.data_ptr(), M, N, K, stream) == 0
+            assert rel(C, ref) <= 1e-13, (variant, K)
 
 
 # K6 and K7 against their plain versions on the same systems as K5:

@@ -11,6 +11,10 @@ Inputs are made with NumPy from a seed: the random SPD systems of
 * the plain f64 factor: 1e-12 relative to ``numpy.linalg.cholesky`` of
   the same matrix (one f64 Cholesky against another, summed in another
   order);
+* the plain factor on the factors' edge plans (``factor_edge_systems``,
+  nb odd and even at s = 128) against the JAX package's
+  ``blocked_cholesky`` at block 128 and ``chol_factor``: 1e-12 relative
+  (one f64 Cholesky against another, summed in another order);
 * solves: 1e-10 relative to the largest entry, as ``tests/test_band.py``
   (the JAX package's factor is f32, refined in f64 to a 1e-12
   residual);
@@ -29,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from sanm_tpu.solver import linear as jlinear
 from sanm_tpu.solver.linear import DeviceCholSolver as JaxCholSolver
 from sanm_tpu.solver.remap import SparseAssembler
 from test_band import _StubAssembler
@@ -37,7 +42,8 @@ from sanm_tpu_torch.solver import anm as panm
 from sanm_tpu_torch.solver import linear as plinear
 from sanm_tpu_torch.solver.assemble import (DensePlan, dense_assemble,
                                             dense_assemble_plain)
-from torch_helper import jax_model, rel_err, torch_matvec
+from torch_helper import (coo_of, factor_edge_systems, jax_model, rel_err,
+                          torch_matvec)
 from test_torch_band import SOLVE_TOL, SYSTEMS, random_system
 from test_torch_slice import COORD_RTOL, RMS, ROOT, solve_port
 
@@ -90,6 +96,34 @@ def test_dense_factor_matches_numpy_cholesky(seed, n, half_bw, s):
     inv = plinear.dense_factor(plan, M)
     assert plinear.dense_factor_ok(inv)
     assert rel_err(np.tril(M.numpy()), L_ref) <= FACTOR_TOL
+    for j in range(plan.nb):
+        blk = L_ref[j * s:(j + 1) * s, j * s:(j + 1) * s]
+        assert rel_err(inv[j].numpy(), np.linalg.inv(blk)) <= FACTOR_TOL
+
+
+@pytest.mark.parametrize("case", factor_edge_systems(),
+                         ids=lambda c: c[0])
+def test_dense_factor_edge_plans_match_jax(case):
+    """The plain dense factor (the oracle of K6b, which applies its
+    trailing update two block columns at a time, a last column alone when
+    nb is odd) at nb = 1, 2, 3, 5 and 12 against the JAX package's
+    ``blocked_cholesky`` at block 128 and ``chol_factor`` in CPU f64: L's
+    lower triangle and the inverses of its diagonal blocks within
+    ``FACTOR_TOL``."""
+    name, A = case
+    rows, cols, vals = coo_of(A)
+    n = A.shape[0]
+    plan = DensePlan(rows, cols, n)
+    assert plan.s == 128 and plan.nb == -(-n // 128)
+    M, _ = dense_assemble(plan, torch.as_tensor(vals))
+    Mj = jnp.asarray(M.numpy())
+    L_ref = np.tril(np.asarray(jlinear.blocked_cholesky(Mj, 128)))
+    assert rel_err(np.tril(np.asarray(jlinear.chol_factor(Mj))),
+                   L_ref) <= FACTOR_TOL
+    inv = plinear.dense_factor(plan, M)
+    assert plinear.dense_factor_ok(inv)
+    assert rel_err(np.tril(M.numpy()), L_ref) <= FACTOR_TOL, name
+    s = plan.s
     for j in range(plan.nb):
         blk = L_ref[j * s:(j + 1) * s, j * s:(j + 1) * s]
         assert rel_err(inv[j].numpy(), np.linalg.inv(blk)) <= FACTOR_TOL

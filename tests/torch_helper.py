@@ -122,6 +122,23 @@ def ragged_spd(sizes, half_bws, rng):
     return A[p][:, p].tocsr()
 
 
+def factor_edge_systems():
+    """The edge cases of the factors' column loops at the card's block
+    size s = 128, as (name, CSR matrix of :func:`random_sparse_spd`): one,
+    two, three and five block columns (n = 100, 200, 300, 600), and the
+    ragged skyline of :func:`ragged_spd` (components of 512, 256 and 768
+    unknowns: twelve block columns, a column of reach 0 at the end of
+    each component).  The band factor's look-ahead meets its first and
+    last columns and a column with nothing below it; the dense factor,
+    which pairs the block columns, runs with nb odd and even."""
+    return [("nb1", random_sparse_spd(100, 9, np.random.default_rng(1))),
+            ("nb2", random_sparse_spd(200, 30, np.random.default_rng(2))),
+            ("nb3", random_sparse_spd(300, 60, np.random.default_rng(3))),
+            ("nb5", random_sparse_spd(600, 140, np.random.default_rng(5))),
+            ("gap", ragged_spd([512, 256, 768], [300, 12, 150],
+                               np.random.default_rng(9)))]
+
+
 def coo_of(A):
     """``(rows, cols, vals)`` of a CSR matrix in COO order (int32 indices),
     as ``tests/test_band.py``'s stub assembler holds them."""
