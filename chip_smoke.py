@@ -76,6 +76,25 @@ Phases, each timed:
    (nhi_step) along a real first restart from the rest shape (bias
    orders 2..20, solved with the card's band factor), each against its
    plain version, timed as in 5;
+9b. stvk: ``gravity`` on armadillo-small with
+   ``override_stiff_material.json`` and a StVK override written to a
+   temporary file (``STVK_OVERRIDE``; StVK diverges at armadillo's own
+   material in both packages) on ``"solver": "band_chol"``, cold and
+   warm: 2 restarts, force-RMS <= 1e-10, no inverted element, no band
+   fallback, the relative displacement within 1e-9 relative of the JAX
+   package's CPU value (``STVK_DISPLACEMENT``), K1s, K3s, K2, K4 and
+   K5a-c launched and no NHC kernel; then docs/GUIDE.md section 1 (x * x
+   = 4) through the function entry point ``ANMEqnSolver(fn, remap_inp,
+   remap_out, x0, y, hp)`` with no device given: it runs on the card and
+   reaches x = 2 within 1e-9;
+9c. stvk kernels: K3s (jac_asm_stvk) at the StVK equilibrium and K1s
+   (stvk_step) along a real first restart from the rest shape (bias
+   orders 2..20, solved with the card's band factor), each against its
+   plain version, timed as in 5; on the same restart the port's Taylor
+   engine (``taylor.py``) runs the model's StVK graph on the card at
+   full width, and its biases must equal K1s's plain version's within
+   1e-11; its ``batched_jacobian`` at the equilibrium must equal K3s's
+   plain Jacobian within 1e-12;
 10. deform: ``mesh_twist`` on ``configs/armadillo_small.json`` +
    ``armadillo_small_bend_override.json`` as it is (ARAP, implicit
    continuation in t through K3t's t column, then an order-6 refinement)
@@ -218,6 +237,21 @@ HUMAN_CONFIGS = [os.path.join(ROOT, "configs", "human.json")]
 # 1e-9 relative
 HUMAN_DISPLACEMENT = 0.008425376847673133
 HUMAN_CPU_RESTARTS = 2
+# the StVK cell: armadillo-small with the stiff material and this
+# override, written to a temporary file (no config selects StVK)
+STVK_CONFIGS = [CONFIG, os.path.join(ROOT, "configs",
+                                     "override_stiff_material.json")]
+STVK_OVERRIDE = {"energy_model": "stvk_stretch"}
+# the JAX package's relative displacement of that task on the CPU (f64,
+# host LU, 2 restarts, force-RMS 2.86e-14), from
+#   SANM_PLATFORM=cpu python -m sanm_tpu.fea configs/sys.json \
+#       configs/armadillo_small.json configs/override_stiff_material.json \
+#       override_stvk.json
+# (a file holding STVK_OVERRIDE; the stat JSON
+# armadillo-small-i0-stvk_stretch.json); the card's must agree to 1e-9
+# relative
+STVK_DISPLACEMENT = 0.02616150932393459
+STVK_RESTARTS = 2
 JET_CONFIGS = [os.path.join(ROOT, "configs", "jet.json")]
 # the deform cell: armadillo-small with its bend override as it is (ARAP,
 # mesh_twist: implicit continuation, then an order-6 refinement), and the
@@ -342,7 +376,11 @@ TOL = {"remap_in": 1e-13, "remap_out": 1e-12, "jac_asm": 1e-12,
        "dense_factor": 1e-10, "dense_solve": 1e-12, "spike_rhs_solve": 1e-12,
        "spike_solve": 1e-12, "hess_proj": 1e-11, "hess_proj_nhi": 1e-11,
        "hess_proj_arap": 1e-11, "csr_matvec": 1e-13, "csr_matvec_t": 1e-13,
-       "diag_blocks": 0.0, "pcg_step": 1e-12}
+       "diag_blocks": 0.0, "pcg_step": 1e-12, "stvk_step": 1e-11,
+       "jac_asm_stvk": 1e-12}
+# the port's Taylor engine against K1s's plain version (biases of one
+# restart) and its batched_jacobian against K3s's plain Jacobian
+ENGINE_TOL = {"series": 1e-11, "jacobian": 1e-12}
 # svd_w on the mirrored equilibrium, where every element flips: a single
 # flipped member of a pair of singular values closer than GROUP_EPS makes
 # W depend on that pair's columns of U, which are fixed only to about
@@ -361,6 +399,7 @@ KERNELS = ("nhc_step", "remap_in", "remap_out", "jac_asm", "element_matvec",
            "band_assemble", "band_factor", "band_solve")
 ARAP_KERNELS = ("svd_w", "arap_step", "jac_asm_arap")
 NHI_KERNELS = ("nhi_step", "jac_asm_nhi")
+STVK_KERNELS = ("stvk_step", "jac_asm_stvk")
 DEFORM_KERNELS = ("grad_t",)
 INV_KERNELS = ("inv_nhc_step", "inv_nhi_step", "jac_asm_inv",
                "jac_asm_inv_nhi")
@@ -397,6 +436,8 @@ REPLACES = {
     "csr_matvec_t": "sanm_tpu/solver/remap.py:446",
     "diag_blocks": "sanm_tpu/solver/remap.py:423",
     "pcg_step": "sanm_tpu/solver/linear.py:671",
+    "stvk_step": "sanm_tpu/solver/anm.py:293",
+    "jac_asm_stvk": "sanm_tpu/taylor.py:611",
 }
 SOURCES = {
     "remap_in": "sanm_tpu_torch/csrc/remap.cu",
@@ -428,6 +469,8 @@ SOURCES = {
     "csr_matvec_t": "sanm_tpu_torch/csrc/cg.cu",
     "diag_blocks": "sanm_tpu_torch/csrc/cg.cu",
     "pcg_step": "sanm_tpu_torch/csrc/cg.cu",
+    "stvk_step": "sanm_tpu_torch/csrc/stvk_series.cu",
+    "jac_asm_stvk": "sanm_tpu_torch/csrc/jac_asm.cu",
 }
 
 _T0 = time.perf_counter()
@@ -953,14 +996,17 @@ def first_restart(model, f_load, series, step, order=20, x0=None,
 
 
 def series_row(timing, label, model, f_load, series, kernel, plain, groups,
-               rows, bound_of, on_bias=None, x0=None, factor=None):
+               rows, bound_of, on_bias=None, x0=None, factor=None,
+               check=None):
     """A series kernel against its plain version along
     :func:`first_restart` from ``x0`` (bias orders 2..20): per order k the
     plain step
     runs on a copy of the history rows the step reads and writes
     (``rows(hist, k)``), then the kernel on the live ones; errors of the
     bias and of order k's component ``groups``, kernel and plain times
-    and the bound ``bound_of(k)``.  ``on_bias(b)`` sees each bias.
+    and the bound ``bound_of(k)``.  ``on_bias(b)`` sees each bias,
+    ``check(k, gin_k, b_plain)`` each order's input and the plain
+    version's bias.
     Returns the largest absolute and relative error and the mean kernel,
     plain and bound ms."""
     import numpy as np
@@ -976,6 +1022,8 @@ def series_row(timing, label, model, f_load, series, kernel, plain, groups,
         snap = hist_k.clone()
         b_plain = torch.empty_like(series.bias_out)
         plain(snap, k, gin_k, elems, b_plain)
+        if check is not None:
+            check(k, gin_k, b_plain)
         b = series.step(k, gin_k)
         e_b, r_b = rel_err(b, b_plain)
         r_h = max(rel_err(series.hist[k, sl], snap[k, sl])[1]
@@ -2328,6 +2376,181 @@ def phase_nhi_kernels(torch, timing, res):
     return rows
 
 
+def phase_stvk(torch):
+    """The StVK cell (armadillo-small, the stiff material) on the band
+    solver, cold and warm.  Returns the run's result, launch counts and
+    stat."""
+    t0 = time.perf_counter()
+    label = "stvk band_chol"
+    with tempfile.TemporaryDirectory() as tmp:
+        over = os.path.join(tmp, "override_stvk.json")
+        with open(over, "w") as f:
+            json.dump(STVK_OVERRIDE, f)
+        res, launches, per = run_gravity(torch, "band_chol",
+                                         STVK_CONFIGS + [over], label)
+    st = res.stat
+    band_line(label, res, launches, per)
+    require(not any(st["band_fallbacks"].values())
+            and st["expansions"]["host_lu"] == 0,
+            "the StVK band path fell back to host LU")
+    for name in STVK_KERNELS + ("remap_in", "remap_out", "element_matvec",
+                                "band_assemble", "band_factor",
+                                "band_solve"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "StVK band_chol path" % name)
+    require(launches["nhc_step"] == 0 and launches["jac_asm"] == 0,
+            "an NHC kernel ran on the StVK path")
+    rel = abs(st["displacement"] - STVK_DISPLACEMENT) / STVK_DISPLACEMENT
+    say("%s: restarts %d (JAX package on the CPU: %d); displacement %.16g "
+        "vs the JAX package's %.16g: rel diff %.3e (tol 1e-9)"
+        % (label, st["iter"], STVK_RESTARTS, st["displacement"],
+           STVK_DISPLACEMENT, rel))
+    require(st["iter"] == STVK_RESTARTS, "StVK restarts differ from the "
+            "JAX package's")
+    require(rel <= 1e-9, "StVK displacement differs from the JAX package's")
+    phase_done("stvk", t0)
+    return res, launches, st
+
+
+def phase_guide(torch):
+    """docs/GUIDE.md section 1 through the function entry point, with no
+    device given (the card): x * x = 4 from x = 1."""
+    import numpy as np
+
+    from sanm_tpu_torch.solver import ANMEqnSolver, EqnHyperParam, LinearRemap
+
+    t0 = time.perf_counter()
+    n = 3
+    remap = LinearRemap.identity(n)
+    hp = EqnHyperParam(order=8, use_pade=True)
+    hp.converge_rms = 1e-10
+    s = ANMEqnSolver(lambda x: x * x, remap, remap, np.full(n, 1.0),
+                     np.full(n, -4.0), hp)
+    it = 0
+    while not s.converged():
+        s.next_iter()
+        it += 1
+        require(it < 50, "the GUIDE example did not converge")
+    x = np.asarray(s.get_x())
+    err = float(np.abs(x - 2.0).max() / 2.0)
+    say("guide: ANMEqnSolver(fn, remap, remap, x0, y, hp) on %s: %d "
+        "restarts, solver %s, x = %s, rel err %.2e (tol 1e-9)"
+        % (s.model.device, s.get_nr_iter(), s.solver_resolved(),
+           x.tolist(), err))
+    require(s.model.device.type == "cuda", "the function entry point did "
+            "not run on the card")
+    require(err <= 1e-9, "the GUIDE example missed x = 2")
+    phase_done("guide", t0)
+
+
+def stvk_step_flops(k):
+    """f64 operations per element of K1s at commit order k + bias k+1,
+    counting only terms the data needs (not the zero g_{k+1} terms):
+    F_k 45, b_k 36 (k + 1); the bias's b_{k+1} 36 k and P 54 (k + 1) +
+    18."""
+    return 45 + 36 * (k + 1) + 36 * k + 54 * (k + 1) + 18
+
+
+#: f64 operations of K3s's dP/dF and chain per element: F 54, C and b 90,
+#: the 81 entries ~324, the chain through Dm^-1 405
+K3S_OPS = 880
+
+
+def phase_stvk_kernels(torch, timing, res):
+    """K1s and K3s against their plain versions on the armadillo-small
+    StVK state of the band run ``res`` (its model, load, band plan and
+    equilibrium), with the port's Taylor engine on the same graph."""
+    from sanm_tpu_torch import taylor
+    from sanm_tpu_torch.ops import stvk_series as K1s
+    from sanm_tpu_torch.solver import assemble as K23
+
+    t0 = time.perf_counter()
+    model, f_load = res.solver.model, res.solver.eqn_y
+    asm, elems = model.asm, model.elems
+    B = asm.B
+    rows = {}
+    report = reporter(rows)
+    plan = res.solver.band_plan()
+
+    # ---- K3s at the equilibrium ----
+    x_eq = model.lt_inp.copy_vtx_values(res.mesh.vertices)
+    gin = K23.remap_in(asm, asm.pad_vector(x_eq))
+    F = elems.deformation_gradient(gin)
+    strain = float((F - torch.eye(3, dtype=F.dtype, device="cuda"))
+                   .abs().max())
+    del F
+    say("stvk equilibrium: max |F - I| = %.4f" % strain)
+    require(strain >= 1e-3, "the StVK equilibrium is not deformed")
+    data, _, E = K23.jac_asm_stvk(asm, elems, gin)
+    data_p, _, E_p = K23.jac_asm_stvk_plain(asm, elems, gin)
+    e_d, r_d = rel_err(data, data_p)
+    e_e, r_e = rel_err(E, E_p)
+    del data_p, E_p
+    flops = B * (K3S_OPS + asm.Dout * 9 * 9 * 2 + asm.Dout * asm.Din * 9 * 2)
+    report("jac_asm_stvk", max(e_d, e_e), max(r_d, r_e),
+           timing.kernel_ms(lambda: K23.jac_asm_stvk(asm, elems, gin),
+                            reps=5),
+           timing.ms(lambda: K23.jac_asm_stvk_plain(asm, elems, gin),
+                     reps=2, warmup=1),
+           bound_ms(nbytes(gin, elems.bias, elems.dminv, asm.Lout, asm.Lin,
+                           asm.nz_ptr, asm.nz_slot, E, data), flops))
+    del data, E
+    # ---- the engine's batched_jacobian against K3s's plain Jacobian ----
+    t1 = time.perf_counter()
+    J_eng = taylor.batched_jacobian(model.fn, gin.reshape(B, 3, 3))
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t1
+    _, r_j = rel_err(J_eng, K23.stvk_jacobian_plain(elems, gin))
+    del J_eng
+    say("engine: batched_jacobian of the StVK graph at the equilibrium "
+        "(B=%d, 9 tangents in sequence, %.3f s) vs K3s's plain Jacobian: "
+        "rel err %.3e (tol %.0e)" % (B, jac_s, r_j, ENGINE_TOL["jacobian"]))
+    require(r_j <= ENGINE_TOL["jacobian"], "the engine's Jacobian disagrees "
+            "with K3s's plain version")
+
+    # ---- K1s along a real first restart from the rest shape (band
+    # factor), the engine on the same restart.  At k the kernel reads
+    # F_0..F_{k-1}, b_1..b_{k-1}, gin and Dm^-1 and writes F_k, b_k and
+    # the bias: 15 (k + 1) + 21 values per element ----
+    tfn = taylor.TaylorFn(model.fn, gin.reshape(B, 3, 3))
+    state = {"err": 0.0}
+
+    class EngineChecked(K1s.StVKSeries):
+        def start(self, gin0):
+            super().start(gin0)
+            state["eng"] = eng = tfn.engine()
+            eng.start(gin0.reshape(B, 3, 3))
+            require(eng.order_bias() is None, "the engine's order-1 bias "
+                    "is not zero")
+
+    def check(k, gin_k, b_plain):
+        eng = state["eng"]
+        eng.push(gin_k.reshape(B, 3, 3))
+        state["err"] = max(state["err"], rel_err(
+            eng.order_bias().reshape(B, 9), b_plain)[1])
+
+    t1 = time.perf_counter()
+    err_k, worst, ms_k, plain_k, bnd_k = series_row(
+        timing, "K1s", model, f_load, EngineChecked(elems, 20),
+        K1s.stvk_step, K1s.stvk_step_plain, K1s.GROUPS,
+        lambda h, k: h[: k + 2],
+        lambda k: bound_ms(8 * B * (K1s.NCOMP * (k + 1) + 21),
+                           B * stvk_step_flops(k)),
+        factor=band_chol_factor(model, plan), check=check)
+    say("engine: the StVK graph's biases of orders 2..20 on the card (B=%d; "
+        "the restart with both %.2f s) vs K1s's plain version: max rel err "
+        "%.3e (tol %.0e)" % (B, time.perf_counter() - t1, state["err"],
+                             ENGINE_TOL["series"]))
+    require(state["err"] <= ENGINE_TOL["series"], "the engine's series "
+            "disagrees with K1s's plain version")
+    report("stvk_step", err_k, worst, ms_k, plain_k, (bnd_k, "bytes"),
+           extra="(mean over the 19 per-order launches of one restart)")
+    del state, tfn
+    torch.cuda.empty_cache()
+    phase_done("stvk kernels", t0)
+    return rows
+
+
 def run_deform(torch, solver, configs=DEFORM_CONFIGS, label=None,
                warm=False, want=None, device="cuda"):
     """The ``mesh_twist`` task of the merged ``configs`` (default the
@@ -3111,6 +3334,9 @@ def main(argv):
     torch.cuda.empty_cache()
     res_nhi, launches_nhi, stats_nhi = phase_nhi(torch)
     torch.cuda.empty_cache()
+    res_stvk, launches_stvk, stat_stvk = phase_stvk(torch)
+    phase_guide(torch)
+    torch.cuda.empty_cache()
     launches_deform, stats_deform = phase_deform(torch)
     torch.cuda.empty_cache()
     runs_inv = phase_inverse(torch)
@@ -3123,13 +3349,14 @@ def main(argv):
     rows = phase_kernels(torch, timing, verts_eq)
     rows.update(phase_arap_kernels(torch, timing, verts_arap))
     rows.update(phase_nhi_kernels(torch, timing, res_nhi))
+    rows.update(phase_stvk_kernels(torch, timing, res_stvk))
     rows.update(phase_deform_kernels(torch, timing))
     rows.update(phase_inverse_kernels(torch, timing, runs_inv))
     launches_inv = {name: runs_inv[cell][1][name]
                     for cell, names in INV_CELL_KERNELS.items()
                     for name in names}
     stats_inv = {cell: r.stat for cell, (r, _) in runs_inv.items()}
-    del timing, res_nhi, runs_inv
+    del timing, res_nhi, res_stvk, runs_inv
     torch.cuda.empty_cache()
     launches_parity = phase_parity()
     phase_profile(torch, band_solver)
@@ -3148,13 +3375,14 @@ def main(argv):
                    "csr_matvec_t": CG_PENALTY_ONLY}
     launches_cg["csr_matvec_t"] = launches_parity["csr_matvec_t"]
     kern = []
-    for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + DEFORM_KERNELS
-                 + INV_KERNELS + DIRECT_KERNEL_NAMES + BASELINE_KERNELS
-                 + CG_KERNELS):
+    for name in (KERNELS + ARAP_KERNELS + NHI_KERNELS + STVK_KERNELS
+                 + DEFORM_KERNELS + INV_KERNELS + DIRECT_KERNEL_NAMES
+                 + BASELINE_KERNELS + CG_KERNELS):
         r = rows[name]
         # launches on the path auto takes on the card: the NHC band phase
         # for K1-K5, the ARAP band phase for K8a-c, the NHI band phase for
-        # K1n and K3n, the ARAP deform band phase (cold + warm) for K3t,
+        # K1n and K3n, the StVK band phase for K1s and K3s, the ARAP
+        # deform band phase (cold + warm) for K3t,
         # the armadillo (NHC) and bob (NHI) inverse runs for K1i and K3i,
         # the NHC dense_chol and spike_band phases for K6 and K7, the
         # baselines for K10, the test_cuboid cg phase (cold + warm) for K4
@@ -3164,6 +3392,7 @@ def main(argv):
                 launches_base if name in BASELINE_KERNELS else
                 launches_arap if name in ARAP_KERNELS else
                 launches_nhi if name in NHI_KERNELS else
+                launches_stvk if name in STVK_KERNELS else
                 launches_deform if name in DEFORM_KERNELS else
                 launches_inv if name in INV_KERNELS else
                 direct["dense_chol"][0] if name in DIRECT_KERNELS[
@@ -3183,6 +3412,7 @@ def main(argv):
                         "dense_chol": direct["dense_chol"][1],
                         "spike_band": direct["spike_band"][1],
                         "arap": stats_arap, "nhi": stats_nhi,
+                        "stvk": stat_stvk,
                         "deform": stats_deform, "inverse": stats_inv,
                         "invcheck": stat_invcheck, "cg": stat_cg,
                         "baseline": {k: st for k, (st, _) in

@@ -1,7 +1,7 @@
-// K3, K3n, K8c and K3i: element Jacobian of the stress and the condensed
-// CSR assembly, for the NHC (K3), the NHI (K3n) and the ARAP (K8c)
-// material and for the inverse model's NHC and NHI Cauchy stress (K3i);
-// K3t: the assembled t column (grad_t) of the implicit continuation.
+// K3, K3n, K3s, K8c and K3i: element Jacobian of the stress and the
+// condensed CSR assembly, for the NHC (K3), the NHI (K3n), the StVK
+// stretch (K3s) and the ARAP (K8c) material and for the inverse model's
+// NHC and NHI Cauchy stress (K3i); K3t: the assembled t column (grad_t) of the implicit continuation.
 //
 // Replaces jac_asm of sanm_tpu/solver/anm.py _hybrid_fns (:278-291):
 // batched_jacobian (sanm_tpu/taylor.py:611, forward-mode 9x9 Jacobian of
@@ -34,6 +34,13 @@
 //         K3n replaces the same batched_jacobian + assemble_csr_elem on
 //         the NHI graph; its bound is K3's (the same bytes, ~40 more
 //         operations an entry).
+//   StVK: P = mu (F F^T F - F) (sanm_tpu/fea/material.py:95-100),
+//         dP = mu (dF F^T F + F dF^T F + F F^T dF - dF), so with
+//         C = F^T F and b = F F^T
+//         dP_ij/dF_ml = mu (d_im C_lj + F_il F_mj + b_im d_jl - d_im d_jl).
+//         K3s replaces batched_jacobian + assemble_csr_elem on the StVK
+//         graph; its bound is K3's (the same bytes; ~100 operations an
+//         element for F, C and b, ~4 an entry).
 //   ARAP: P = mu (F - W), W = polar_w(F), from K8a's U, s, W of F (the
 //         JVP of sanm_tpu/ops/svd_w.py:173): for dF = e_m e_l^T,
 //         A = U^T dF V = U[m, :]^T V[l, :],
@@ -112,13 +119,11 @@ constexpr int kThreads = 256;
 
 constexpr double kClipEps = 1e-12;  // ops/svd_w.py CLIP_EPS
 
-// What both Neo-Hookean materials read: Dm^-1 (M), F = (g0 + bias) M,
-// G = F^-1 = cof(F)^T / J and J = det F.
-__device__ __forceinline__ void nh_factors(const double* __restrict__ gin0,
-                                           const double* __restrict__ bias,
-                                           const double* __restrict__ dminv,
-                                           int64_t b, double* M, double* F,
-                                           double* G, double& J) {
+// Dm^-1 (M) and F = (g0 + bias) M of element b.
+__device__ __forceinline__ void forward_f(const double* __restrict__ gin0,
+                                          const double* __restrict__ bias,
+                                          const double* __restrict__ dminv,
+                                          int64_t b, double* M, double* F) {
     for (int i = 0; i < 9; ++i) M[i] = dminv[b * 9 + i];
     for (int i = 0; i < 3; ++i) {
         double ds[3];
@@ -130,6 +135,16 @@ __device__ __forceinline__ void nh_factors(const double* __restrict__ gin0,
             F[i * 3 + j] = acc;
         }
     }
+}
+
+// What both Neo-Hookean materials read: Dm^-1 (M), F = (g0 + bias) M,
+// G = F^-1 = cof(F)^T / J and J = det F.
+__device__ __forceinline__ void nh_factors(const double* __restrict__ gin0,
+                                           const double* __restrict__ bias,
+                                           const double* __restrict__ dminv,
+                                           int64_t b, double* M, double* F,
+                                           double* G, double& J) {
+    forward_f(gin0, bias, dminv, b, M, F);
     // cofactor C, J = det F, G = F^-1 = C^T / J
     double C[9];
     for (int i = 0; i < 3; ++i) {
@@ -201,6 +216,40 @@ struct NHIMaterial {
                        c * G[j * 3 + m] * G[l * 3 + i];
             if (i == m && j == l) v += mu * A;
             sD[idx] = v;
+        }
+    }
+};
+
+// The StVK stretch material's F-space part: P = mu (F F^T F - F), so with
+// C = F^T F and b = F F^T
+// sD[(i,j), (m,l)] = mu (d_im C_lj + F_il F_mj + b_im d_jl - d_im d_jl);
+// M as NHC's.
+struct StVKMaterial {
+    struct Params {
+        const double *gin0, *bias, *dminv;
+        double mu;
+    };
+
+    static __device__ void dpdf(const Params& prm, int64_t b, int lane,
+                                double* sD, double* M) {
+        double F[9], C[9], Bb[9];
+        forward_f(prm.gin0, prm.bias, prm.dminv, b, M, F);
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j) {
+                C[i * 3 + j] = F[i] * F[j] + F[3 + i] * F[3 + j] +
+                               F[6 + i] * F[6 + j];
+                Bb[i * 3 + j] = F[i * 3] * F[j * 3] +
+                                F[i * 3 + 1] * F[j * 3 + 1] +
+                                F[i * 3 + 2] * F[j * 3 + 2];
+            }
+        for (int idx = lane; idx < 81; idx += 32) {
+            const int p = idx / 9, q = idx % 9;
+            const int i = p / 3, j = p % 3, m = q / 3, l = q % 3;
+            double v = F[i * 3 + l] * F[m * 3 + j];
+            if (i == m) v += C[l * 3 + j];
+            if (j == l) v += Bb[i * 3 + m];
+            if (i == m && j == l) v -= 1.0;
+            sD[idx] = prm.mu * v;
         }
     }
 };
@@ -611,6 +660,17 @@ extern "C" int sanm_jac_asm_nhi(const double* gin0, const double* bias,
     return jac_asm<Chained<NHIMaterial>>({gin0, bias, dminv, mu, kappa}, Lout, Lin,
                                 nz_ptr, nz_slot, E, data, B, Dout, Din, nnz,
                                 (cudaStream_t)stream);
+}
+
+extern "C" int sanm_jac_asm_stvk(const double* gin0, const double* bias,
+                                 const double* dminv, const double* Lout,
+                                 const double* Lin, const int32_t* nz_ptr,
+                                 const int32_t* nz_slot, double* E,
+                                 double* data, int64_t B, int Dout, int Din,
+                                 int64_t nnz, double mu, void* stream) {
+    return jac_asm<Chained<StVKMaterial>>({gin0, bias, dminv, mu}, Lout, Lin,
+                                          nz_ptr, nz_slot, E, data, B, Dout,
+                                          Din, nnz, (cudaStream_t)stream);
 }
 
 extern "C" int sanm_jac_asm_inv(const double* gin0, const double* bias,

@@ -1,7 +1,9 @@
 // What the Neo-Hookean series steps share: K1 (nhc_series.cu), K1n
-// (nhi_series.cu) and the inverse model's K1i (inv_series.cu).  Both
-// forward stresses read F, J = det F and Q = F^-T, so both keep the same
-// first 22 history components and the same order-m recurrences for them:
+// (nhi_series.cu) and the inverse model's K1i (inv_series.cu); the StVK
+// step K1s (stvk_series.cu) reads its F_k and histories through Hist,
+// load_F and order_f.  Both Neo-Hookean forward stresses read F, J = det F
+// and Q = F^-T, so both keep the same first 22 history components and the
+// same order-m recurrences for them:
 //   F_m  = g_m Dm^-1 (plus the bias at m = 0)
 //   C_m  = sum_{t=0..m} minor products of F_t and F_{m-t}     (cofactor)
 //   J_m  = sum_{t=0..m} F_t[0,:] . C_{m-t}[0,:]

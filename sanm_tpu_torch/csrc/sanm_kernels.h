@@ -130,6 +130,24 @@ int sanm_jac_asm_nhi(const double* gin0, const double* bias,
                      int64_t B, int Dout, int Din, int64_t nnz, double mu,
                      double kappa, void* stream);
 
+// K1s: commit order k of the StVK stretch series histories hist
+// (order+1, 15, B) from the graph input g_k (B, 9) (plus bias at k = 0),
+// then, when want_bias, write the order-(k+1) bias of P (B, 9) into
+// bias_out.
+int sanm_stvk_step(double* hist, const double* gin, const double* bias,
+                   const double* dminv, double* bias_out, int64_t B, int k,
+                   int order, double mu, int want_bias, void* stream);
+
+// K3s: per element the StVK stretch Jacobian of P in g (9x9) at
+// F = (g0 + bias) Dm^-1 (shear modulus mu), then E and the CSR values as
+// sanm_jac_asm.
+int sanm_jac_asm_stvk(const double* gin0, const double* bias,
+                      const double* dminv, const double* Lout,
+                      const double* Lin, const int32_t* nz_ptr,
+                      const int32_t* nz_slot, double* E, double* data,
+                      int64_t B, int Dout, int Din, int64_t nnz, double mu,
+                      void* stream);
+
 // K3t: grad_t[r] = sum of E's flat slots t_slot[t_ptr[r] : t_ptr[r+1]]
 // (the t column of the implicit continuation's Jacobian), r < n_rows.
 int sanm_grad_t(const double* E, const int32_t* t_ptr, const int32_t* t_slot,

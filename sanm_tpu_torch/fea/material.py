@@ -1,11 +1,11 @@
 """Hyperelastic material models as batched torch expressions.
 
 Port of ``sanm_tpu/fea/material.py`` (reference ``fea/material.{h,cpp}``)
-for the ported materials: the energy-model names, the moduli, ``pk1``
-for the compressible (NHC) and incompressible (NHI) Neo-Hookean models
-and for ARAP (whose SVD-W runs through K8a on the card), the Cauchy
-stress of NHC and NHI (the inverse model's), and the ARAP energy
-density.  StVK's stress belongs to a later slice and raises.
+for every material: the energy-model names, the moduli, ``pk1`` for
+the compressible (NHC) and incompressible (NHI) Neo-Hookean models, for
+ARAP (whose SVD-W runs through K8a on the card) and for the stretch term
+of St. Venant-Kirchhoff (StVK), the Cauchy stress of NHC and NHI (the
+inverse model's), and the ARAP energy density.
 
 Conventions: F deformation gradient (B, 3, 3), J = det(F),
 b = F F^T, P first Piola-Kirchhoff stress, sigma Cauchy stress.
@@ -85,7 +85,10 @@ def pk1(energy_model: EnergyModel, material: MaterialProperty, F, dim: int):
         return mu * F - mu * FTinv + lam * torch.log(J) * FTinv
     if energy_model == EnergyModel.ARAP:
         return (F - polar_w(F)) * mu
-    raise SANMError(f"pk1 for {energy_model} is not ported yet")
+    if energy_model == EnergyModel.StVK_STRETCH:
+        b = torch.bmm(F, F.transpose(1, 2))
+        return mu * (torch.bmm(b, F) - F)
+    raise SANMError(f"pk1 unimplemented for {energy_model}")
 
 
 def cauchy_stress(energy_model: EnergyModel, material: MaterialProperty, F,

@@ -36,10 +36,12 @@ from ..ops.elements import Elements, InvElements
 from ..ops.inv_series import InvNHCSeries, InvNHISeries
 from ..ops.nhc_series import NHCSeries
 from ..ops.nhi_series import NHISeries
+from ..ops.stvk_series import StVKSeries
 from ..ops.svd_w import svd_w
 from ..solver.assemble import (DeviceAssembler, hess_proj, hess_proj_arap,
                                hess_proj_nhi, jac_asm, jac_asm_arap,
-                               jac_asm_inv, jac_asm_inv_nhi, jac_asm_nhi)
+                               jac_asm_inv, jac_asm_inv_nhi, jac_asm_nhi,
+                               jac_asm_stvk)
 from ..solver.remap import SparseAssembler
 from ..utils import SANMError
 from .material import (EnergyModel, MaterialProperty, cauchy_stress,
@@ -69,13 +71,15 @@ HESS_PROJ = {
 }
 
 
-#: per ported (energy model, inverse), its series class (K1, K1n, K8b;
-#: K1i) and its Jacobian assembly ``(asm, elems, gin0) -> (data, grad_t,
-#: E)`` (K3, K3n, K8a + K8c, each followed by K3t where the plan has a t
-#: column; K3i)
+#: per ported (energy model, inverse), its series class (K1, K1n, K1s,
+#: K8b; K1i) and its Jacobian assembly ``(asm, elems, gin0) -> (data,
+#: grad_t, E)`` (K3, K3n, K3s, K8a + K8c, each followed by K3t where the
+#: plan has a t column; K3i).  StVK has no K10 entry: the JAX baselines
+#: have no StVK energy (``sanm_tpu/fea/baseline.py:87``).
 MATERIAL_KERNELS = {
     (EnergyModel.NEOHOOKEAN_C, False): (NHCSeries, jac_asm),
     (EnergyModel.NEOHOOKEAN_I, False): (NHISeries, jac_asm_nhi),
+    (EnergyModel.StVK_STRETCH, False): (StVKSeries, jac_asm_stvk),
     (EnergyModel.ARAP, False): (ARAPSeries, _jac_asm_arap),
     (EnergyModel.NEOHOOKEAN_C, True): (InvNHCSeries, jac_asm_inv),
     (EnergyModel.NEOHOOKEAN_I, True): (InvNHISeries, jac_asm_inv_nhi),
@@ -112,15 +116,30 @@ class ElasticForceModel:
         Cholesky factors only a symmetric one (``solver/anm.py``)."""
         return not self.inverse
 
+    @property
+    def n_input(self):
+        """The length of the input remap's operand: the unknowns, plus t
+        for a model with a ``vtx_delta``."""
+        return self.lt_inp.remap.inp_size
+
     def x0(self):
         return self.lt_inp.x0
+
+    def fn(self, g):
+        """The stress graph as a plain torch function of the graph input
+        ``g`` (B, 3, 3), in the shape the input remap gives it: P (B, 3, 3)
+        (sigma for an inverse model), as the JAX model's ``fn``
+        (``sanm_tpu/fea/model.py:41``).  It is what the Taylor engine
+        (``taylor.py``) traces; the ANM driver runs the material's kernels
+        (:data:`MATERIAL_KERNELS`) instead."""
+        F = self.elems.deformation_gradient(g.reshape(-1, 9))
+        stress = cauchy_stress if self.inverse else pk1
+        return stress(self.energy_model, self.material, F, 3)
 
     def stress(self, gin):
         """P (B, 9) at graph input ``gin`` (B, 9); sigma for an inverse
         model."""
-        F = self.elems.deformation_gradient(gin)
-        fn = cauchy_stress if self.inverse else pk1
-        return fn(self.energy_model, self.material, F, 3).reshape(-1, 9)
+        return self.fn(gin).reshape(-1, 9)
 
     def _kernels(self):
         return MATERIAL_KERNELS[(self.energy_model, self.inverse)]

@@ -88,7 +88,7 @@ class ShapeMatRemap:
         if t_slot is not None:
             idx[..., t_slot] = np.where(dt != 0, n_unknown, 0)
             coef[..., t_slot] = dt
-        self.remap = LinearRemap(
+        self.remap = LinearRemap.from_padded(
             idx.reshape(T * dim * dim, width),
             coef.reshape(T * dim * dim, width),
             n_unknown + self.has_delta, (T, dim, dim),
@@ -137,4 +137,5 @@ class ForceOutputRemap:
         coef = norms[e, s]  # (n, maxdeg, 3)
         idx = np.where(live[:, :, None], idx, 0).reshape(n, maxdeg * dim)
         coef = np.where(live[:, :, None], coef, 0.0).reshape(n, maxdeg * dim)
-        self.remap = LinearRemap(idx, coef, T * dim * dim, (n,))
+        self.remap = LinearRemap.from_padded(idx, coef, T * dim * dim,
+                                             (n,))

@@ -26,6 +26,7 @@ import threading
 import time
 
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from .utils import SANMError
 
@@ -50,7 +51,7 @@ LAUNCHES = {"remap_in": 0, "remap_out": 0, "jac_asm": 0, "nhc_step": 0,
             "spike_rhs_solve": 0, "spike_solve": 0, "hess_proj": 0,
             "hess_proj_nhi": 0, "hess_proj_arap": 0, "csr_matvec": 0,
             "csr_matvec_t": 0, "diag_blocks": 0, "pcg_step": 0,
-            "diag_factor": 0}
+            "diag_factor": 0, "stvk_step": 0, "jac_asm_stvk": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -82,6 +83,8 @@ _SIGNATURES = {
     "sanm_jac_asm_nhi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
                          _I32, _I64, _F64, _F64, _P],
     "sanm_grad_t": [_P, _P, _P, _P, _I64, _P],
+    "sanm_stvk_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _I32, _P],
+    "sanm_jac_asm_stvk": [_P] * 9 + [_I64, _I32, _I32, _I64, _F64, _P],
     "sanm_inv_nhc_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
                           _I32, _P],
     "sanm_inv_nhi_step": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F64, _F64,
@@ -206,9 +209,20 @@ def library():
         return _lib
 
 
+def tracing() -> bool:
+    """True while ``make_fx`` traces a function (the Taylor engine's
+    ``TaylorFn``): a kernel launched through ctypes would run on the
+    example data and leave no trace in the graph."""
+    return get_proxy_mode() is not None
+
+
 def launch(counter: str, fn_name: str, *args):
     """Call one C entry point on the current stream, raise on a launch
-    error, and count the launch."""
+    error, and count the launch.  Raises while a graph is traced
+    (:func:`tracing`)."""
+    if tracing():
+        raise SANMError("%s cannot be traced into a Taylor graph: the engine "
+                        "has no rule for a hand-written kernel" % fn_name)
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn_name)(*args, stream)

@@ -6,5 +6,6 @@ from .linalg import (  # noqa: F401
     batched_cofactor,
     batched_det,
     batched_inv,
+    batched_mul_eye,
     batched_transpose,
 )

@@ -2,8 +2,10 @@
 
 Port of ``sanm_tpu/ops/linalg.py:23-110``: closed-form transpose,
 determinant, cofactor and inverse of (B, n, n) tensors for n <= 3,
-written as products and sums of entries.  The generic-n primitives
-(SVD cofactor, polymat determinant) belong to a later slice.
+written as products and sums of entries, so that a traced graph holds
+only the mul, sub and div the Taylor engine has rules for; and
+``batched_mul_eye``.  The generic-n primitives (SVD cofactor, polymat
+determinant) belong to a later slice.
 """
 
 from __future__ import annotations
@@ -73,3 +75,10 @@ def batched_inv(x):
     det = batched_det(x)
     adj = batched_transpose(batched_cofactor(x))
     return adj / det[..., None, None]
+
+
+def batched_mul_eye(s, dim):
+    """Batched scalar -> scalar * I_dim (reference ``batch_mul_eye``,
+    ``sanm_tpu/ops/linalg.py:105``); ``s`` has shape (B,) or (B, 1)."""
+    s = s.reshape(s.shape[0])
+    return s[:, None, None] * torch.eye(dim, dtype=s.dtype, device=s.device)

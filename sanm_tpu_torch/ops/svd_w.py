@@ -94,6 +94,11 @@ def svd_w(m, require_rotation: bool = True):
     runs :func:`svd_w_plain` for a CPU tensor, raises for anything
     else, and on the card for ``require_rotation=False`` (the kernel
     always makes det(W) = +1)."""
+    if kernels.tracing():
+        # the SVD-W Taylor rules (the polar and the full mode) are not in
+        # the port's engine yet: a traced graph that calls svd_w has no
+        # rule, as in the JAX engine for a primitive without one
+        raise SANMError("no Taylor rule for svd_w in the port's engine")
     if m.dim() != 3:
         raise SANMError("m: shape %s, expected (B, 3, 3)" % (tuple(m.shape),))
     B = m.shape[0]

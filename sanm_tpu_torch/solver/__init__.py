@@ -8,3 +8,4 @@ from .anm import (  # noqa: F401
     EqnHyperParam,
     HyperParam,
 )
+from .remap import LinearRemap  # noqa: F401

@@ -44,10 +44,16 @@ The continuation control (restarts, Pade, convergence) is host Python on
 the (N+1, n+1) coefficient matrix.
 
 The model here is an
-:class:`~sanm_tpu_torch.fea.model.ElasticForceModel`, forward or inverse;
-its f(x0) is evaluated in f64 on the model's device.  The inverse
-model's Jacobian is not symmetric (``model.symmetric``), so ``auto``
-takes host LU for it and the Cholesky solvers raise.  Two kinds of curve
+:class:`~sanm_tpu_torch.fea.model.ElasticForceModel`, forward or inverse,
+or a :class:`FunctionModel`: the function entry point of the JAX package,
+``ANMEqnSolver(fn, remap_inp, remap_out, x0, y, hp, device=None)`` (and
+likewise for the other two drivers), where ``fn`` is a plain torch
+function of the remapped graph input whose series come from the Taylor
+engine (``taylor.py``) and whose Jacobian from ``batched_jacobian``.  Its
+f(x0) is evaluated in f64 on the model's device.  The inverse model's and
+a function's Jacobian are not taken as symmetric (``model.symmetric``),
+so ``auto`` takes host LU for them and the Cholesky solvers raise.  Two
+kinds of curve
 share the driver: f(x) + t v = 0 (:class:`ANMSolverVecScale`, and
 :class:`ANMEqnSolver` on top of it), where dH/dt is the vector v, and
 f(x, t) = f(x0, t0) (:class:`ANMImplicitSolver`), whose model reads t
@@ -62,7 +68,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from .. import polynomial
+from .. import polynomial, resolve_device
 from ..pade import PadeApproximation
 from ..utils import (
     SANMError,
@@ -71,10 +77,12 @@ from ..utils import (
     sanm_assert,
     verbose_mode,
 )
-from .assemble import DensePlan, element_matvec, plan_for
+from .assemble import (DeviceAssembler, DensePlan, assemble_csr_elem,
+                       element_matvec, plan_for)
 from .band import BandPlan, DeviceBandCholSolver
 from .linear import (DenseFactorSolver, DeviceCholSolver, HostSparseLU,
                      SparseCG)
+from .remap import SparseAssembler
 from .spike import DeviceSpikeBandSolver, SpikePlan
 
 #: the linear solvers (``sanm_tpu/solver/anm.py:54-64``)
@@ -125,6 +133,120 @@ class EqnHyperParam(HyperParam):
     """Reference ``ANMEqnSolver::HyperParam`` (``libsanm/anm.h:244-248``)."""
 
     converge_rms: float = 1e-5
+
+
+class EngineSeries:
+    """The Taylor engine of a traced function behind the series interface
+    of the material kernels (``NHCSeries``): ``start(gin0)`` runs order 0
+    and checks that the order-1 bias is structurally zero;
+    ``step(k, gin_k)`` commits order k and returns the order-(k+1) bias
+    (B, odim)."""
+
+    def __init__(self, tfn, in_shape, B, odim):
+        self.engine = tfn.engine()
+        self.in_shape = in_shape
+        self.out_2d = (B, odim)
+
+    def start(self, gin0):
+        self.engine.start(gin0.reshape(self.in_shape))
+        if self.engine.order_bias() is not None:
+            raise SANMError("order-1 bias must be structurally zero")
+
+    def step(self, k: int, gin_k):
+        self.engine.push(gin_k.reshape(self.in_shape))
+        b = self.engine.order_bias()
+        if b is None:
+            return torch.zeros(self.out_2d, dtype=torch.float64,
+                               device=gin_k.device)
+        return b.reshape(self.out_2d).contiguous()
+
+
+class FunctionModel:
+    """A driver's model for a plain torch function ``fn`` of the graph
+    input: H(x) = remap_out(fn(remap_inp(x))), as the JAX drivers take it
+    (``sanm_tpu/solver/anm.py:107``).
+
+    The remaps' plan is ``SparseAssembler(remap_out, remap_inp, B, odim,
+    idim, n)`` with B the first axis of ``remap_inp``'s output shape;
+    ``fn`` must be elementwise over that axis (its Jacobian is assembled
+    per batch element).  The series come from the Taylor engine of ``fn``
+    traced once (``taylor.TaylorFn``); the Jacobian from
+    ``taylor.batched_jacobian``, then E = Lout J Lin and the CSR values as
+    ``assemble_csr_elem``.  The Jacobian is not taken as symmetric, so
+    ``auto`` takes host LU.  Runs on ``device`` (default: the card; see
+    :func:`sanm_tpu_torch.resolve_device`)."""
+
+    symmetric = False
+
+    def __init__(self, fn, remap_inp, remap_out, n_unknown: int,
+                 device=None):
+        from ..taylor import TaylorFn
+
+        dev = resolve_device(device)
+        self.fn = fn
+        self.n_input = int(remap_inp.inp_size)
+        self.in_shape = tuple(remap_inp.out_shape)
+        B = self.in_shape[0]
+        plan = SparseAssembler(remap_out, remap_inp, B,
+                               remap_out.inp_size // B,
+                               remap_inp.n_out // B, n_unknown)
+        self.asm = DeviceAssembler.from_plan(plan, dev)
+        self.tfn = TaylorFn(fn, torch.zeros(self.in_shape,
+                                            dtype=torch.float64, device=dev))
+        if self.tfn.multi:
+            raise SANMError("the ANM drivers take a function of one output")
+
+    @property
+    def device(self):
+        return self.asm.device
+
+    def series(self, order: int):
+        return EngineSeries(self.tfn, self.in_shape, self.asm.B,
+                            self.asm.odim)
+
+    def jac_asm(self, gin0):
+        """``(data, grad_t, E)`` at the graph input ``gin0`` (B, idim)."""
+        from ..taylor import batched_jacobian
+
+        J = batched_jacobian(self.fn, gin0.reshape(self.in_shape))
+        return assemble_csr_elem(self.asm, J.contiguous())
+
+    def eval_force(self, x):
+        """H(x) (n,) at the unknown vector x ((n + 1,) with t for the
+        implicit solver), evaluated in f64 on the model's device; returned
+        as NumPy."""
+        gin = self.asm.apply_in(np.asarray(x).reshape(-1))
+        out = self.fn(gin.reshape(self.in_shape))
+        return self.asm.apply_out(
+            out.reshape(self.asm.B, self.asm.odim).contiguous()
+        ).cpu().numpy()
+
+
+def _driver_args(args, device):
+    """``(model, rest)`` from a driver's positional arguments: ``(model,
+    x0, ...)`` with a model (``asm`` and the rest of the interface above),
+    or the JAX package's ``(fn, remap_inp, remap_out, x0, ...)``, which
+    makes a :class:`FunctionModel` on ``device``."""
+    if args and hasattr(args[0], "asm"):
+        if device is not None:
+            raise SANMError("device= belongs to the function form; a model "
+                            "lives on its own device")
+        return args[0], args[1:]
+    if len(args) < 4:
+        raise SANMError("expected (model, x0, ...) or (fn, remap_inp, "
+                        "remap_out, x0, ...)")
+    fn, remap_inp, remap_out, x0 = args[:4]
+    model = FunctionModel(fn, remap_inp, remap_out, np.asarray(x0).size,
+                          device)
+    return model, args[3:]
+
+
+def _hyper_param(more, hyper_param):
+    """The hyper parameters, given after the other positional arguments or
+    by keyword."""
+    sanm_assert(len(more) <= 1 and not (more and hyper_param is not None),
+                "too many arguments")
+    return more[0] if more else hyper_param
 
 
 def resolved_solver(expansions):
@@ -630,10 +752,15 @@ class _ANMDriverBase:
 
 class ANMSolverVecScale(_ANMDriverBase):
     """Solve f(x) + t*v = 0 for the curve x(t)
-    (reference ``ANMSolverVecScale``, ``libsanm/anm.cpp:319-443``)."""
+    (reference ``ANMSolverVecScale``, ``libsanm/anm.cpp:319-443``):
+    ``ANMSolverVecScale(model, x0, t0, v, hyper_param=None)`` or
+    ``ANMSolverVecScale(fn, remap_inp, remap_out, x0, t0, v,
+    hyper_param=None, device=None)``."""
 
-    def __init__(self, model, x0, t0, v, hyper_param=None,
+    def __init__(self, *args, hyper_param=None, device=None,
                  _defer_init=False):
+        model, (x0, t0, v, *more) = _driver_args(args, device)
+        hyper_param = _hyper_param(more, hyper_param)
         x0 = np.asarray(x0).reshape(-1)
         super().__init__(model, x0.size, hyper_param)
         self.v = None if v is None else np.asarray(v).reshape(-1)
@@ -675,15 +802,20 @@ class ANMEqnSolver(ANMSolverVecScale):
 
     Each restart expands the homotopy f(x) + t*(f(x0)+y) = f(x0) from
     t=0; reaching t=1 solves the equation, and restarting from the
-    current point re-targets the remaining residual."""
+    current point re-targets the remaining residual.
+    ``ANMEqnSolver(model, x0, y, hyper_param=None)`` or
+    ``ANMEqnSolver(fn, remap_inp, remap_out, x0, y, hyper_param=None,
+    device=None)``."""
 
-    def __init__(self, model, x0, y, hyper_param=None):
-        hp = hyper_param or EqnHyperParam()
+    def __init__(self, *args, hyper_param=None, device=None):
+        model, (x0, y, *more) = _driver_args(args, device)
+        hp = _hyper_param(more, hyper_param) or EqnHyperParam()
         self._converge_rms = getattr(hp, "converge_rms", 1e-5)
         self._converged = False
         self._residual_rms = np.inf
         self.eqn_y = np.asarray(y).reshape(-1)
-        super().__init__(model, x0, 0.0, None, hp, _defer_init=True)
+        super().__init__(model, x0, 0.0, None, hyper_param=hp,
+                         _defer_init=True)
         sanm_assert(self.eqn_y.size == self.n)
         self._x0_init = np.asarray(x0).reshape(-1).copy()
         self.solve_expansion_coeffs()
@@ -757,15 +889,20 @@ class ANMImplicitSolver(_ANMDriverBase):
     """Solve f(x, t) = f(x0, t0) for the curve x(t), t increasing from
     t0 (reference ``ANMImplicitSolver``, ``libsanm/anm.cpp:493-615``;
     ``sanm_tpu/solver/anm.py:1754-1793``).  The model's remap reads t as
-    its last input (a model made with a ``vtx_delta``); the assembled t
-    column (K3t) is dH/dt."""
+    its last input (a model made with a ``vtx_delta``, or a function whose
+    ``remap_inp`` reads the entry n); the assembled t column (K3t) is
+    dH/dt.  ``ANMImplicitSolver(model, x0, t0, hyper_param=None)`` or
+    ``ANMImplicitSolver(fn, remap_inp, remap_out, x0, t0,
+    hyper_param=None, device=None)``."""
 
     is_implicit = True
 
-    def __init__(self, model, x0, t0, hyper_param=None):
+    def __init__(self, *args, hyper_param=None, device=None):
+        model, (x0, t0, *more) = _driver_args(args, device)
+        hyper_param = _hyper_param(more, hyper_param)
         x0 = np.asarray(x0).reshape(-1)
         super().__init__(model, x0.size, hyper_param)
-        sanm_assert(model.lt_inp.remap.inp_size == self.n + 1,
+        sanm_assert(model.n_input == self.n + 1,
                     "the implicit solver needs a model with a t column")
         self._fx0 = None
         self.init_xt0(x0, t0)

@@ -8,7 +8,8 @@ Device half of ``sanm_tpu/solver/remap.py``'s ``SparseAssembler``:
   ``sanm_tpu/solver/anm.py:278-291`` (``batched_jacobian`` +
   ``assemble_csr_elem``), once per restart, with the material's
   closed-form Jacobian: K3 for the NHC stress, K3n
-  (:func:`jac_asm_nhi`) for NHI, K8c (:func:`jac_asm_arap`) for ARAP,
+  (:func:`jac_asm_nhi`) for NHI, K3s (:func:`jac_asm_stvk`) for the StVK
+  stretch, K8c (:func:`jac_asm_arap`) for ARAP,
   whose SVD-W of F runs through K8a first, and for the inverse model's
   Cauchy stress K3i (:func:`jac_asm_inv` NHC, :func:`jac_asm_inv_nhi`
   NHI; ``solver/anm.py:278`` on ``make_inverse``'s graph); each returns
@@ -329,6 +330,26 @@ def jac_asm_nhi(asm: DeviceAssembler, elems: Elements, gin0):
                        elems.kappa, jac_asm_nhi_plain)
 
 
+def jac_asm_stvk(asm: DeviceAssembler, elems: Elements, gin0):
+    """K3s: :func:`jac_asm` for the StVK stretch stress P = mu (F F^T F -
+    F) (mu only).  Launches the kernel for card tensors, runs
+    :func:`jac_asm_stvk_plain` for CPU tensors."""
+    _check_jac(asm, elems, gin0)
+    if not kernels.on_card(gin0, elems.dminv, elems.bias, asm.Lin,
+                           asm.nz_ptr):
+        return jac_asm_stvk_plain(asm, elems, gin0)
+    E = torch.empty((asm.B, asm.Dout, asm.Din), dtype=_f64,
+                    device=gin0.device)
+    data = torch.empty((asm.nnz,), dtype=_f64, device=gin0.device)
+    kernels.launch("jac_asm_stvk", "sanm_jac_asm_stvk", gin0.data_ptr(),
+                   elems.bias.data_ptr(), elems.dminv.data_ptr(),
+                   asm.Lout.data_ptr(), asm.Lin.data_ptr(),
+                   asm.nz_ptr.data_ptr(), asm.nz_slot.data_ptr(),
+                   E.data_ptr(), data.data_ptr(), asm.B, asm.Dout, asm.Din,
+                   asm.nnz, float(elems.mu))
+    return data, grad_t(asm, E), E
+
+
 def jac_asm_inv(asm: DeviceAssembler, elems: InvElements, gin0):
     """K3i: :func:`jac_asm` for the inverse model's NHC Cauchy stress in
     the rest shape (``elems`` an :class:`InvElements`).  Launches the
@@ -423,6 +444,23 @@ def nhi_dpdf_plain(elems: Elements, gin0):
     return D4.reshape(B, 9, 9)
 
 
+def stvk_dpdf_plain(elems: Elements, gin0):
+    """(B, 9, 9) dP_ij/dF_ml of the StVK stretch stress P = mu (F F^T F -
+    F): mu (d_im C_lj + F_il F_mj + b_im d_jl - d_im d_jl) with C = F^T F,
+    b = F F^T, in F (see ``csrc/jac_asm.cu``)."""
+    B = elems.B
+    F = elems.deformation_gradient(gin0)
+    C = torch.bmm(F.transpose(1, 2), F)
+    b = torch.bmm(F, F.transpose(1, 2))
+    eye = torch.eye(3, dtype=_f64, device=gin0.device)
+    # D4[b, i, j, m, l]
+    D4 = (eye[None, :, None, :, None] * C.transpose(1, 2)[:, None, :, None, :]
+          + F[:, :, None, None, :] * F.transpose(1, 2)[:, None, :, :, None]
+          + b[:, :, None, :, None] * eye[None, None, :, None, :]
+          - eye[None, :, None, :, None] * eye[None, None, :, None, :])
+    return (elems.mu * D4).reshape(B, 9, 9)
+
+
 def arap_dpdf_plain(elems: Elements, u, s, w):
     """(B, 9, 9) dP/dF of the ARAP stress mu (F - W(F)) from the SVD-W
     of F: per basis direction dF = e_m e_l^T, mu (dF - dW)."""
@@ -456,6 +494,12 @@ def nhi_jacobian_plain(elems: Elements, gin0):
     """(B, 9, 9) Jacobian of the NHI stress P(g) at ``gin0``: its dP/dF
     chained through F (:func:`chain_plain`)."""
     return chain_plain(elems, nhi_dpdf_plain(elems, gin0))
+
+
+def stvk_jacobian_plain(elems: Elements, gin0):
+    """(B, 9, 9) Jacobian of the StVK stretch stress P(g) at ``gin0``: its
+    dP/dF chained through F (:func:`chain_plain`)."""
+    return chain_plain(elems, stvk_dpdf_plain(elems, gin0))
 
 
 def _inv_factors(elems: InvElements, gin0):
@@ -525,9 +569,12 @@ def arap_jacobian_plain(elems: Elements, u, s, w):
     return chain_plain(elems, arap_dpdf_plain(elems, u, s, w))
 
 
-def _assemble_plain(asm: DeviceAssembler, J):
-    """E = Lout J Lin, the CSR values and grad_t, scatter-added (plain
-    torch, as ``assemble_csr_elem``)."""
+def assemble_csr_elem(asm: DeviceAssembler, J):
+    """``(data, grad_t, E)`` from the per-element Jacobian ``J`` (B, odim,
+    idim): E = Lout J Lin, the CSR values and grad_t, scatter-added in
+    plain torch (``sanm_tpu/solver/remap.py:356`` ``assemble_csr_elem``).
+    The plain versions of the Jacobian kernels end here, and so does the
+    function entry point's Jacobian (``solver/anm.py``)."""
     E = torch.einsum("bdp,bpq,bqe->bde", asm.Lout, J, asm.Lin).contiguous()
     acc = torch.zeros(asm.nnz + 1, dtype=_f64, device=J.device)
     acc.index_add_(0, asm.slot_pos.long(), E.reshape(-1))
@@ -537,27 +584,32 @@ def _assemble_plain(asm: DeviceAssembler, J):
 
 def jac_asm_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K3 (NHC)."""
-    return _assemble_plain(asm, nhc_jacobian_plain(elems, gin0))
+    return assemble_csr_elem(asm, nhc_jacobian_plain(elems, gin0))
 
 
 def jac_asm_nhi_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K3n (:func:`jac_asm_nhi`)."""
-    return _assemble_plain(asm, nhi_jacobian_plain(elems, gin0))
+    return assemble_csr_elem(asm, nhi_jacobian_plain(elems, gin0))
+
+
+def jac_asm_stvk_plain(asm: DeviceAssembler, elems: Elements, gin0):
+    """Plain torch version of K3s (:func:`jac_asm_stvk`)."""
+    return assemble_csr_elem(asm, stvk_jacobian_plain(elems, gin0))
 
 
 def jac_asm_inv_plain(asm: DeviceAssembler, elems: InvElements, gin0):
     """Plain torch version of K3i (:func:`jac_asm_inv`)."""
-    return _assemble_plain(asm, inv_nhc_jacobian_plain(elems, gin0))
+    return assemble_csr_elem(asm, inv_nhc_jacobian_plain(elems, gin0))
 
 
 def jac_asm_inv_nhi_plain(asm: DeviceAssembler, elems: InvElements, gin0):
     """Plain torch version of K3i NHI (:func:`jac_asm_inv_nhi`)."""
-    return _assemble_plain(asm, inv_nhi_jacobian_plain(elems, gin0))
+    return assemble_csr_elem(asm, inv_nhi_jacobian_plain(elems, gin0))
 
 
 def jac_asm_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
     """Plain torch version of K8c (:func:`jac_asm_arap`)."""
-    return _assemble_plain(asm, arap_jacobian_plain(elems, u, s, w))
+    return assemble_csr_elem(asm, arap_jacobian_plain(elems, u, s, w))
 
 
 # ---------------------------------------------------------------------------
@@ -652,21 +704,21 @@ def project_plain(elems: Elements, D):
 
 def hess_proj_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K10 (:func:`hess_proj`, NHC)."""
-    data, _, E = _assemble_plain(
+    data, _, E = assemble_csr_elem(
         asm, project_plain(elems, nhc_dpdf_plain(elems, gin0)))
     return data, E
 
 
 def hess_proj_nhi_plain(asm: DeviceAssembler, elems: Elements, gin0):
     """Plain torch version of K10 for NHI (:func:`hess_proj_nhi`)."""
-    data, _, E = _assemble_plain(
+    data, _, E = assemble_csr_elem(
         asm, project_plain(elems, nhi_dpdf_plain(elems, gin0)))
     return data, E
 
 
 def hess_proj_arap_plain(asm: DeviceAssembler, elems: Elements, u, s, w):
     """Plain torch version of K10 for ARAP (:func:`hess_proj_arap`)."""
-    data, _, E = _assemble_plain(
+    data, _, E = assemble_csr_elem(
         asm, project_plain(elems, arap_dpdf_plain(elems, u, s, w)))
     return data, E
 

@@ -14,7 +14,7 @@ are the maps of the CSR products and the block-Jacobi preconditioner.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -24,9 +24,27 @@ from ..utils import sanm_assert
 class LinearRemap:
     """out[o] = sum_s coef[o, s] * x[idx[o, s]], stored as padded
     (n_out, width) index and coefficient arrays (mesh topology is
-    static).  Dead slots have coefficient 0."""
+    static).  Dead slots have coefficient 0.
 
-    def __init__(self, idx, coef, inp_size: int, out_shape: Tuple[int, ...]):
+    ``LinearRemap(rows, inp_size, out_shape)`` builds it from ``rows``, a
+    list (one per output scalar) of lists of ``(input_index,
+    coefficient)`` pairs, as the JAX package's constructor
+    (``sanm_tpu/solver/remap.py:32``); :meth:`identity` and
+    :meth:`from_padded` are its other constructors."""
+
+    def __init__(self, rows, inp_size: int, out_shape: Tuple[int, ...]):
+        n_out = int(math.prod(out_shape))
+        sanm_assert(len(rows) == n_out, "rows=%d out=%d", len(rows), n_out)
+        width = max((len(r) for r in rows), default=1) or 1
+        idx = np.zeros((n_out, width), np.int32)
+        coef = np.zeros((n_out, width), np.float64)
+        for o, row in enumerate(rows):
+            for s, (i, c) in enumerate(row):
+                idx[o, s] = i
+                coef[o, s] = c
+        self._init(idx, coef, inp_size, out_shape)
+
+    def _init(self, idx, coef, inp_size, out_shape):
         self.idx = np.ascontiguousarray(idx, np.int32)
         self.coef = np.ascontiguousarray(coef, np.float64)
         self.inp_size = int(inp_size)
@@ -35,6 +53,20 @@ class LinearRemap:
         sanm_assert(self.idx.shape == self.coef.shape
                     and self.idx.shape[0] == self.n_out)
         self._transposed = None
+
+    @staticmethod
+    def identity(n: int, out_shape: Optional[Tuple[int, ...]] = None):
+        """The identity of n inputs, its output in ``out_shape`` (default
+        (n,)) (reference ``SparseLinearDesc::make_identity``)."""
+        return LinearRemap.from_padded(np.arange(n)[:, None],
+                                       np.ones((n, 1)), n, out_shape or (n,))
+
+    @classmethod
+    def from_padded(cls, idx, coef, inp_size: int, out_shape):
+        """From the padded (n_out, width) index and coefficient arrays."""
+        self = cls.__new__(cls)
+        self._init(idx, coef, inp_size, out_shape)
+        return self
 
     def apply_np(self, x):
         """Host apply to a flat (inp_size,) vector."""

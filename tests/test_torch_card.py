@@ -691,6 +691,106 @@ def test_nhi_jacobian(nhi_models):
     assert kernels.LAUNCHES["jac_asm_nhi"] == n0 + 2
 
 
+STVK_TOL = {"stvk_step": 1e-11, "jac_asm_stvk": 1e-12}
+
+
+@pytest.fixture
+def stvk_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = TetrahedralMesh.make_cuboid(6, 4, 4, 0.025)
+        body = DeformableBody(MaterialProperty.from_young_poisson(1e7, 0.45),
+                              mesh)
+        body.coord_fixed_mask[mesh.vertices[:, 0] <= 0.0125, :] = True
+        out[dev] = body.make_forward(EnergyModel.StVK_STRETCH, device=dev)
+    return out
+
+
+def test_stvk_series(stvk_models):
+    """K1s against its plain version along 20 orders of a series from a
+    perturbed start of the cuboid (biases and every history group)."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.ops.stvk_series import GROUPS, StVKSeries
+
+    g, c = stvk_models["cuda"], stvk_models["cpu"]
+    rng = np.random.default_rng(14)
+    x0 = g.x0() + rng.uniform(-1e-3, 1e-3, g.asm.n)
+    sg = StVKSeries(g.elems, 20)
+    sc = StVKSeries(c.elems, 20)
+    n0 = kernels.LAUNCHES["stvk_step"]
+    sg.start(g.asm.apply_in(x0))
+    sc.start(c.asm.apply_in(x0))
+    for k in range(1, 20):
+        xk = rng.standard_normal(g.asm.n) * 1e-3 * 0.5 ** k
+        bg = sg.step(k, g.asm.apply_in(xk))
+        bc = sc.step(k, c.asm.apply_in(xk))
+        assert rel(bg, bc) <= STVK_TOL["stvk_step"], k
+        for sl in GROUPS:
+            assert rel(sg.hist[k, sl], sc.hist[k, sl]) \
+                <= STVK_TOL["stvk_step"], (k, sl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stvk_step"] == n0 + 20
+
+
+def test_stvk_jacobian(stvk_models):
+    """K3s against its plain version at a perturbed state of the cuboid."""
+    from sanm_tpu_torch import kernels
+    from sanm_tpu_torch.solver import assemble as K
+
+    g = stvk_models["cuda"]
+    x = g.x0() + np.random.default_rng(15).uniform(-2e-3, 2e-3, g.asm.n)
+    gin = g.asm.apply_in(x)
+    n0 = kernels.LAUNCHES["jac_asm_stvk"]
+    data, _, E = K.jac_asm_stvk(g.asm, g.elems, gin)
+    data_p, _, E_p = K.jac_asm_stvk_plain(g.asm, g.elems, gin)
+    assert rel(E, E_p) <= STVK_TOL["jac_asm_stvk"]
+    assert rel(data, data_p) <= STVK_TOL["jac_asm_stvk"]
+    assert g.jac_asm(gin)[0].shape == data.shape
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["jac_asm_stvk"] == n0 + 2
+
+
+def test_stvk_engine_and_guide(stvk_models):
+    """The Taylor engine on the card: the StVK graph's biases along 20
+    orders against K1s's plain version on the CPU, and the GUIDE example
+    through the function entry point with no device given (the card)."""
+    from sanm_tpu_torch import taylor
+    from sanm_tpu_torch.ops.stvk_series import StVKSeries
+    from sanm_tpu_torch.solver import (ANMEqnSolver, EqnHyperParam,
+                                       LinearRemap)
+
+    g, c = stvk_models["cuda"], stvk_models["cpu"]
+    B = g.asm.B
+    rng = np.random.default_rng(16)
+    x0 = g.x0() + rng.uniform(-1e-3, 1e-3, g.asm.n)
+    gin0 = g.asm.apply_in(x0)
+    eng = taylor.TaylorFn(g.fn, gin0.reshape(B, 3, 3)).engine()
+    eng.start(gin0.reshape(B, 3, 3))
+    assert eng.order_bias() is None
+    sc = StVKSeries(c.elems, 20)
+    sc.start(c.asm.apply_in(x0))
+    for k in range(1, 20):
+        xk = rng.standard_normal(g.asm.n) * 1e-3 * 0.5 ** k
+        eng.push(g.asm.apply_in(xk).reshape(B, 3, 3))
+        b = eng.order_bias().reshape(B, 9)
+        assert rel(b, sc.step(k, c.asm.apply_in(xk))) \
+            <= STVK_TOL["stvk_step"], k
+    remap = LinearRemap.identity(3)
+    hp = EqnHyperParam(order=8, use_pade=True)
+    hp.converge_rms = 1e-10
+    s = ANMEqnSolver(lambda x: x * x, remap, remap, np.full(3, 1.0),
+                     np.full(3, -4.0), hp)
+    while not s.converged():
+        s.next_iter()
+    assert s.model.device.type == "cuda"
+    np.testing.assert_allclose(s.get_x(), 2.0, rtol=1e-9)
+
+
 # The deform slice: K3t (grad_t) for the three materials, and K2
 # remap_in, the Jacobians (K3, K3n, K8c) and K4 at Din = 13.  A far-face
 # delta alone keeps Din = 12 (an element that reads t has a fixed

@@ -6,7 +6,9 @@
   statement of their sources, function-level ones included.
 * An entry point without CUDA raises unless the caller passes
   ``device="cpu"``; a wrapper given anything but CPU or card tensors
-  raises; the kernel build without ``nvcc`` raises.  None falls back.
+  raises; the kernel build without ``nvcc`` raises; a kernel launch
+  while a function is traced for the Taylor engine raises.  None falls
+  back.
 * ``auto`` takes host LU on the CPU; the band path runs there only when
   asked for, through the plain versions.
 """
@@ -167,6 +169,54 @@ def test_wrappers_do_not_fall_back():
     band.band_solve(plan, panels, x)
     assemble.element_matvec(asm, E, x)
     assert kernels.LAUNCHES == before
+
+
+def test_stvk_wrappers_do_not_fall_back():
+    """K1s and K3s check their arguments, refuse other devices and run
+    their plain versions on the CPU without counting a launch."""
+    from sanm_tpu_torch import SANMError, kernels
+    from sanm_tpu_torch.fea import (DeformableBody, EnergyModel,
+                                    MaterialProperty, TetrahedralMesh)
+    from sanm_tpu_torch.ops.stvk_series import NCOMP, StVKSeries, stvk_step
+    from sanm_tpu_torch.solver import assemble
+
+    body = DeformableBody(MaterialProperty.from_young_poisson(1e6, 0.4),
+                          TetrahedralMesh.make_cuboid(3, 2, 2, 0.1))
+    model = body.make_forward(EnergyModel.StVK_STRETCH, device="cpu")
+    asm, el = model.asm, model.elems
+    before = dict(kernels.LAUNCHES)
+    hist = torch.zeros(5, NCOMP, asm.B, dtype=torch.float64)
+    g = torch.zeros(asm.B, 9, dtype=torch.float64)
+    with pytest.raises(SANMError):  # wrong history width
+        stvk_step(torch.zeros(5, NCOMP + 1, asm.B, dtype=torch.float64), 0,
+                  g, el)
+    with pytest.raises(SANMError):
+        stvk_step(hist.to("meta"), 0, g.to("meta"), el)
+    with pytest.raises(SANMError):  # order out of range
+        StVKSeries(el, 4).step(4, g)
+    with pytest.raises(SANMError):  # wrong dtype
+        assemble.jac_asm_stvk(asm, el, g.float())
+    gin = asm.apply_in(model.x0())
+    StVKSeries(el, 4).start(gin)
+    assemble.jac_asm_stvk(asm, el, gin)
+    assert kernels.LAUNCHES == before
+
+
+def test_no_kernel_launch_while_tracing():
+    """A kernel launched while the Taylor engine traces a function would
+    run on the example data and leave no trace in the graph: the launch
+    raises instead (before any build)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from sanm_tpu_torch import SANMError, kernels
+
+    def fn(x):
+        kernels.launch("remap_in", "sanm_remap_in")
+        return x
+
+    assert not kernels.tracing()
+    with pytest.raises(SANMError, match="traced"):
+        make_fx(fn)(torch.ones(2, dtype=torch.float64))
 
 
 def test_auto_takes_host_lu_on_the_cpu():
